@@ -7,9 +7,13 @@ module's counterpart is found under the same path:
                    latents, RMSE, PRD and an optional GBT disorder head.
 - ``models``       the LSTM autoencoder as an ``nn.Module`` and its registry.
 - ``ops``          hand-written CUDA kernels for Hopper (``csrc/*.cu``), each
-                   beside its plain PyTorch version: the fused LSTM encoder
-                   and GBT row routing.
-- ``classify``     the GBT classifier's predict half.
+                   beside its plain PyTorch version: the fused LSTM encoder,
+                   GBT histograms and GBT row routing.
+- ``classify``     the GBT classifier (fit and predict), LHS sampling and
+                   the evaluation harness (grid search, size x seed sweep,
+                   PPV analysis).
+- ``cli``          the classify CLI (``latent``, ``features``, ``ppv``).
+- ``core``         the training config and the array schema.
 - ``train``        checkpoints in the JAX package's ``.npz`` leaf format,
                    trained-weight loading and the wave layout helper.
 - ``bridge``       weights carried between the two packages as numpy arrays.

@@ -5,9 +5,9 @@ NVIDIA GPU:
 
 Phases, each of which fails the run:
 
-1. device and build: the card's name and power limit; both CUDA kernels
-   built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per source, in
-   parallel).
+1. device and build: the card's name and power limit; the three CUDA
+   kernels built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel).
 2. the fused LSTM encoder kernel against its plain version at the serving
    shape (B=64, T=320, 1->128->64->10), at latent 2 and 20 and at B=1,
    within 2e-5; timed beside the plain version and a ``torch.nn.LSTM``
@@ -24,10 +24,27 @@ Phases, each of which fails the run:
    ``Scorer`` on the CPU (latents 2e-5, reconstruction 1e-4, probability
    1e-5).  Prints p50 latency and beats/s per request size, and where the
    device time of a 64-beat score goes, by kernel, with the idle share.
+5. the GBT histogram kernel at the fit's shapes (96 fits x 12,000 rows at
+   1..16 left children, 24 fits at 32..256, 25 fits x 12,500 rows at 16):
+   its fixed-point sums equal to its plain version's and bit-identical
+   across two calls; scaled to float32, within 1e-4 absolute and 1e-5
+   relative of the float64 plain version.  Timed beside the plain version
+   and a float32 ``torch.einsum`` one-hot contraction.
+6. the classify path through its entry point: a synthetic latent data dir
+   (6,500 control and 6,500 sick rows of 10 latents) and
+   ``cli.classify ppv --vectorized --gs_candidates 12 --seeds 25``, the
+   harness at full width.  The histogram and routing kernels' launch
+   counts must rise.  Prints the grid search's and PPV sweep's wall
+   seconds, fold-fits per second, ms per tree per fit and the median AUC
+   and PPV.
+7. determinism: a 4-fit sweep on 2,000 rows, fitted twice on the card
+   (bit-identical ensembles and margins) and once on the CPU (the same
+   trees, margins within 5e-3).
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
-and prints no result.  Weights and beats are random, made from seeds.
+and prints no result.  Weights, beats and latents are random, made from
+seeds.
 """
 
 from __future__ import annotations
@@ -324,6 +341,245 @@ def phase_serve(torch):
     return launches
 
 
+HIST_SHAPES = ([(96, 12000, half) for half in (1, 2, 4, 8, 16)]
+               + [(24, 12000, half) for half in (32, 64, 128, 256)] + [(25, 12500, 16)])
+HIST_SWEEP_SHAPE = (96, 12000, 16)  # the grid search's depth <= 6 chunks, deepest level
+
+
+def phase_hist(torch, dev):
+    from ae_waveforms_tpu_torch.ops.gbt_hist import (
+        fixed_point_shift, left_histograms, left_histograms_fixed, left_histograms_fixed_reference,
+        left_histograms_reference,
+    )
+
+    rng = np.random.default_rng(5)
+    F, n_bins = 10, 64
+    result = {}
+    for S, n, half in HIST_SHAPES:
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        binsT = t(rng.integers(0, n_bins, size=(F, n)).astype(np.int32))
+        g = t(rng.uniform(-1, 1, (S, n)).astype(np.float32))
+        h = t(rng.uniform(0, 0.25, (S, n)).astype(np.float32))
+        node = t(rng.integers(0, 2 * half, size=(S, n)).astype(np.int32))
+        shift = fixed_point_shift(g, h)
+        kw = dict(half=half, n_bins=n_bins)
+        q1 = left_histograms_fixed(binsT, g, h, node, shift, **kw)
+        q2 = left_histograms_fixed(binsT, g, h, node, shift, **kw)
+        exact = torch.equal(q1, left_histograms_fixed_reference(binsT, g, h, node, shift, **kw))
+        got = left_histograms(binsT, g, h, node, shift=shift, **kw)
+        ref = left_histograms_reference(binsT, g, h, node, **kw)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        close = bool(((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
+        check(torch.equal(q1, q2), f"gbt_hist is not bit-identical across two calls at S={S} n={n} half={half}")
+        check(exact, f"gbt_hist fixed-point sums differ from the plain version at S={S} n={n} half={half}")
+        check(close, f"gbt_hist disagrees with the float64 plain version at S={S} n={n} half={half}: {err}")
+
+        ms = graph_ms(torch, lambda: left_histograms_fixed(binsT, g, h, node, shift, **kw), 20)
+        f32_ms = graph_ms(torch, lambda: left_histograms(binsT, g, h, node, shift=shift, **kw), 20)
+        plain_ms = graph_ms(torch, lambda: left_histograms_fixed_reference(binsT, g, h, node, shift, **kw), 3)
+        # the JAX package's non-kernel path: one float32 contraction of the
+        # (fit, row, child) g/h operand with the one-hot bins, built outside
+        sel = (node[:, :, None] == 2 * torch.arange(half, device=dev)).float()
+        A = torch.cat([sel * g[:, :, None], sel * h[:, :, None]], dim=2)
+        onehot = (binsT.T[:, :, None] == torch.arange(n_bins, device=dev)).float().reshape(n, F * n_bins)
+        library_ms = graph_ms(torch, lambda: torch.einsum("snc,nb->scb", A, onehot), 3)
+        del sel, A, onehot
+        matched = int(((node % 2 == 0) & (node < 2 * half)).sum().item())
+        # bytes: bins, g, h, node ids and shifts read once, the function's
+        # float32 histograms written once (the kernel's int64 write is a cost
+        # of its design, printed beside); operations: a g and an h add per
+        # (matched row, feature)
+        out_cells = S * 2 * half * F * n_bins
+        bound_ms, bound_by = bound(4 * F * n + 12 * S * n + 4 * S + 4 * out_cells, 2 * F * matched)
+        int64_bound_ms, _ = bound(4 * F * n + 12 * S * n + 4 * S + 8 * out_cells, 2 * F * matched)
+        print(f"[gbt_hist] S={S} n={n} half={half}: fixed point exact and bit-identical, float32 max_abs_err "
+              f"{err:.3e} (tolerance 1e-4 + 1e-5 |ref|); device ms per call (CUDA graph): kernel {ms:.5f}, "
+              f"float32 entry {f32_ms:.5f}, plain {plain_ms:.5f}, einsum {library_ms:.5f}; "
+              f"bound {bound_ms:.6f} ms by {bound_by} ({int64_bound_ms:.6f} ms with an int64 write)")
+        if (S, n, half) == HIST_SWEEP_SHAPE:
+            result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=library_ms)
+    return result
+
+
+def write_latent_dir(d: str, n_per: int = 6500, F: int = 10, seed: int = 6) -> None:
+    """The classify CLI's inputs: np_info.npy, np_latent_spaces_mimiciv.npy,
+    controls.csv and hypopotassium.csv.  Latents are seeded Gaussians, the
+    sick cases' means shifted on four of the ten latents."""
+    rng = np.random.default_rng(seed)
+    shift = np.where(np.arange(F) < 4, 0.3, 0.0)
+    latents = np.concatenate([rng.standard_normal((n_per, F)),
+                              rng.standard_normal((n_per, F)) + shift]).astype(np.float32)
+    ids = np.arange(2 * n_per) + 100000
+    np.save(os.path.join(d, "np_info.npy"), np.stack([ids, 2000 * np.arange(2 * n_per)], 1).astype(np.float64))
+    np.save(os.path.join(d, "np_latent_spaces_mimiciv.npy"), latents)
+    for name, part in (("controls.csv", ids[:n_per]), ("hypopotassium.csv", ids[n_per:])):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("idx,caseid\n" + "".join(f"{i},{c}\n" for i, c in enumerate(part)))
+
+
+def phase_classify(torch):
+    from ae_waveforms_tpu_torch.classify.lhs import lhs_param_dicts
+    from ae_waveforms_tpu_torch.cli import classify as cli
+    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
+    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+
+    n_candidates, n_seeds = 12, 25
+    cands = lhs_param_dicts(n_candidates, random_state=1)  # the CLI's grid
+    print("[classify] candidates (max_depth, n_estimators): "
+          + ", ".join(f"({p['max_depth']}, {p['n_estimators']})" for p in cands))
+    timed = {}
+
+    def timing(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed[name] = (time.perf_counter() - t0, out)
+            return out
+        return run
+
+    originals = cli.grid_search_cv, cli.ppv_analysis
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        write_latent_dir(d)
+        cli.grid_search_cv, cli.ppv_analysis = timing("grid", originals[0]), timing("ppv", originals[1])
+        left_histograms_fixed.launches = route_rows.launches = 0
+        try:
+            result = cli.main(["ppv", "--data", d, "--vectorized", "--gs_candidates", str(n_candidates),
+                               "--seeds", str(n_seeds)])
+        finally:
+            cli.grid_search_cv, cli.ppv_analysis = originals
+        launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches}
+    print(f"[classify] launches during the classify run: {launches}")
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the classify path: {launches}")
+    grid_s, gs = timed["grid"]
+    ppv_s, _ = timed["ppv"]
+    best = gs["best_params"]
+    fold_fits = 3 * n_candidates
+    cap = max(p["n_estimators"] for p in cands)
+    print(f"[classify] grid search: {grid_s:.3f} s wall for {fold_fits} fold-fits of {cap} trees on 12,000 rows "
+          f"({fold_fits / grid_s:.3f} fold-fits/s, {grid_s * 1e3 / (fold_fits * cap):.4f} ms per tree per fit); "
+          f"best CV AUC {gs['best_score']:.4f} at {best}")
+    print(f"[classify] PPV sweep: {ppv_s:.3f} s wall for {n_seeds} seeds x {best['n_estimators']} trees of depth "
+          f"{best['max_depth']} on a 12,500-row pool ({ppv_s * 1e3 / (n_seeds * best['n_estimators']):.4f} "
+          f"ms per tree per fit)")
+    print(f"[classify] median AUC {result['median_auc']:.4f} (IQR {result['q1_auc']:.4f}-{result['q3_auc']:.4f}), "
+          f"median PPV {result['median_ppv']:.4f} (IQR {result['q1_ppv']:.4f}-{result['q3_ppv']:.4f})")
+    fit_breakdown(torch, torch.device("cuda:0"), S=96, depth=6, trees=20)
+    fit_breakdown(torch, torch.device("cuda:0"), S=24, depth=10, trees=10)
+    values = np.array(result["aucs"] + result["ppvs"], np.float64)
+    check(len(result["aucs"]) == n_seeds and np.all(np.isfinite(values)), "non-finite or missing AUC/PPV")
+    check(0.5 < result["median_auc"] <= 1.0 and 0.0 < result["median_ppv"] <= 1.0,
+          f"the classifier does not separate the shifted classes: {result['median_auc']}")
+    return launches
+
+
+def fit_breakdown(torch, dev, S: int, depth: int, trees: int, n: int = 12000, F: int = 10) -> None:
+    """Where a fit's time goes on the card: device ms per tree by kernel
+    group (torch.profiler) and the device's idle share of the wall time,
+    for S fits of ``trees`` trees at ``depth`` on n random rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ae_waveforms_tpu_torch.classify.gbt import fit_gbt_sweep_margins
+
+    rng = np.random.default_rng(8)
+    bins = torch.from_numpy(rng.integers(0, 64, size=(n, F)).astype(np.int32)).to(dev)
+    y = torch.from_numpy((rng.random(n) < 0.5).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.random((S, n)) < 0.67).astype(np.float32)).to(dev)
+
+    def fit():
+        return fit_gbt_sweep_margins(bins, y, w, np.arange(S), [0.1] * S, [0.0] * S, [1.0] * S, [0.8] * S,
+                                     [0.8] * S, [trees] * S, max_depth=depth, n_estimators=trees)
+
+    fit()
+    torch.cuda.synchronize()
+    groups = {"gbt_hist": ("gbt_hist_kernel",), "gbt_route": ("gbt_route_kernel",), "copies": ("Memcpy", "Memset")}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fit()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = {e.key: e.count for e in prof.key_averages()}
+    seen = {g: sum(c for k, c in counts.items() if groups[g][0] in k) for g in ("gbt_hist", "gbt_route")}
+    if seen != {"gbt_hist": trees * depth, "gbt_route": trees * depth}:
+        print(f"[classify] fit breakdown not measured: torch.profiler recorded {seen} of "
+              f"{trees * depth} launches of each kernel")
+        return
+    per = dict.fromkeys([*groups, "epilogue and other kernels"], 0.0)
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+        name = next((g for g, keys in groups.items() if any(k in e.key for k in keys)), "epilogue and other kernels")
+        per[name] += us / trees / 1e3
+    busy = sum(per.values())
+    print(f"[classify] fit of {S} fits x {n} rows, depth {depth}, device ms per tree: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+          + f"; device busy {busy:.4f} of {wall_ms / trees:.4f} ms wall per tree (profiled), "
+          f"idle share {1 - busy * trees / wall_ms:.3f}")
+
+
+def _split_gains(bins, g, h, rows, splits):
+    """Host float64 gains of the candidate (feature, bin) splits of one
+    node's rows: 0.5 * (GL^2/(HL+1) + GR^2/(HR+1) - G^2/(H+1))."""
+    out = []
+    for f, b in splits:
+        left = rows & (bins[:, f] <= b)
+        right = rows & (bins[:, f] > b)
+        GL, HL, GR, HR = g[left].sum(), h[left].sum(), g[right].sum(), h[right].sum()
+        out.append(0.5 * (GL**2 / (HL + 1) + GR**2 / (HR + 1) - (GL + GR) ** 2 / (HL + HR + 1)))
+    return out
+
+
+def phase_determinism(torch, dev):
+    from ae_waveforms_tpu_torch.classify import gbt
+
+    rng = np.random.default_rng(7)
+    S, n, F, depth, trees = 4, 2000, 10, 6, 20
+    X = rng.standard_normal((n, F)).astype(np.float32)
+    y = (X[:, 0] - 0.7 * X[:, 3] + 0.5 * rng.standard_normal(n) > 0).astype(np.float32)
+    weights = (rng.random((S, n)) < 0.7).astype(np.float32)
+    bins = gbt.bin_data(torch.from_numpy(X), torch.from_numpy(gbt.compute_bin_edges(X))).numpy()
+    hp = dict(learning_rates=[0.3] * S, gammas=[0.0] * S, min_child_weights=[1.0] * S, subsamples=[0.8] * S,
+              colsamples=[0.8] * S, n_actives=[trees] * S)
+
+    def fit(device):
+        return gbt.fit_gbt_sweep_margins(torch.from_numpy(bins).to(device), y, weights, np.arange(S),
+                                         *hp.values(), max_depth=depth, n_estimators=trees)
+
+    a, b, c = fit(dev), fit(dev), fit("cpu")
+    torch.cuda.synchronize()
+    same = all(torch.equal(u, v) for u, v in zip((*a[0], a[1]), (*b[0], b[1])))
+    print(f"[determinism] two card fits ({S} fits, {n} rows, depth {depth}, {trees} trees, subsample and colsample "
+          f"0.8): ensembles and margins bit-identical: {same}")
+    check(same, "two card fits of the same inputs differ")
+    for name in ("feat", "thresh", "is_split"):
+        ga, gc = getattr(a[0], name).cpu().numpy(), getattr(c[0], name).numpy()
+        if not np.array_equal(ga, gc):
+            s, t, k = (int(v) for v in np.argwhere(ga != gc)[0])
+            splits = [(int(a[0].feat[s, t, k]), int(a[0].thresh[s, t, k])), (int(c[0].feat[s, t, k]), int(c[0].thresh[s, t, k]))]
+            prior = gbt.GBTEnsemble(*(x[s, :t] for x in c[0][:4]), lr=c[0].lr[s])
+            m = gbt.predict_margin(prior, torch.from_numpy(bins), depth).double().numpy() if t else np.zeros(n)
+            p = 1 / (1 + np.exp(-m))
+            w = weights[s] * (gbt.subsample_uniforms(torch.tensor([s]), t, n, gbt._ROW_STREAM)[0].numpy() < 0.8)
+            level = int(np.log2(k + 1))
+            node = np.zeros(n, np.int64)  # every row's node at the differing node's level
+            cf, ct, cs = (x[s, t].numpy() for x in c[0][:3])
+            for d in range(level):
+                kk = 2**d - 1 + node
+                node = np.where(cs[kk], 2 * node + (bins[np.arange(n), cf[kk]] > ct[kk]), 2 * node)
+            rows = node == k - (2**level - 1)
+            gains = _split_gains(bins, (p - y) * w, np.maximum(p * (1 - p), 1e-16) * w, rows, splits)
+            print(f"[determinism] first differing node: fit {s}, tree {t}, heap slot {k}: card (feature, bin) "
+                  f"{splits[0]} gain {gains[0]!r}, CPU {splits[1]} gain {gains[1]!r}")
+            raise SmokeFailure(f"card and CPU fits grow different trees ({name})")
+    err = float((a[1].cpu() - c[1]).abs().max())
+    print(f"[determinism] card against CPU: feat, thresh and is_split equal; margins max_abs_err {err:.3e} "
+          f"(tolerance 5e-3)")
+    check(err <= 5e-3, f"card and CPU margins differ by {err}")
+
+
 def main() -> int:
     import torch
 
@@ -341,21 +597,33 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] both kernels built in {time.perf_counter() - t0:.2f} s")
+    print(f"[build] {len(_build.KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
     for name in _build.KERNELS:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.is_file():
             print(f"[build] {name}: " + " | ".join(line.strip() for line in log.read_text().splitlines() if line.strip()))
 
-    encoder = phase_encoder(torch, dev)
-    route = phase_route(torch, dev)
-    launches = phase_serve(torch)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"[phase] {name}: {time.perf_counter() - t0:.2f} s wall")
+        return out
+
+    encoder = timed("2 lstm_encoder", phase_encoder, torch, dev)
+    route = timed("3 gbt_route", phase_route, torch, dev)
+    serve_launches = timed("4 serving", phase_serve, torch)
+    hist = timed("5 gbt_hist", phase_hist, torch, dev)
+    classify_launches = timed("6 classify", phase_classify, torch)
+    timed("7 determinism", phase_determinism, torch, dev)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
-             replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109", launches=launches["lstm_encoder"], **encoder),
+             replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109", launches=serve_launches["lstm_encoder"], **encoder),
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
-             replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167", launches=launches["gbt_route"], **route),
+             replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
+             launches=serve_launches["gbt_route"] + classify_launches["gbt_route"], **route),
+        dict(name="gbt_hist", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_hist.cu",
+             replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193", launches=classify_launches["gbt_hist"], **hist),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -91,5 +91,12 @@ def test_predict_matches_jax_gbt():
 
 
 def test_fit_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="histogram kernel"):
-        GBTClassifier(device="cpu").fit(np.zeros((4, 2)), np.zeros(4))
+    """GBTClassifier.fit runs on the CPU and its trees route the training
+    rows to probabilities that separate the classes."""
+    rng = np.random.default_rng(5)
+    X = rng.standard_normal((200, 4)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    clf = GBTClassifier(max_depth=2, n_estimators=5, device="cpu").fit(X, y)
+    p = clf.predict_proba(X)
+    assert p.shape == (200, 2) and clf._ens.feat.shape == (5, 4)
+    assert route_rows.launches == 0 and (clf.predict(X) == y).mean() > 0.9
