@@ -17,6 +17,8 @@ module's counterpart is found under the same path:
 - ``train``        checkpoints in the JAX package's ``.npz`` leaf format,
                    trained-weight loading and the wave layout helper.
 - ``bridge``       weights carried between the two packages as numpy arrays.
+- ``tools``        measurements on the card beyond ``chip_smoke.py`` (the
+                   encoder kernel's phase profile).
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain version.

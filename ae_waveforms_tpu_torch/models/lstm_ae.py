@@ -20,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.models.layers import linear_init, lstm_init
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
@@ -38,7 +39,8 @@ class LSTMAutoencoder(nn.Module):
     ):
         """Weights are drawn from ``generator`` (seed 0 when None) with
         torch's uniform(+-1/sqrt(H)) init, layer by layer in the JAX
-        package's order enc1..enc3, dec1..dec3, out."""
+        package's order enc1..enc3, dec1..dec3, out.  The module lives on
+        ``device``: the first CUDA device unless named (``resolve_device``)."""
         super().__init__()
         h1, h2 = hidden_sizes
         self.sizes = {
@@ -50,7 +52,7 @@ class LSTMAutoencoder(nn.Module):
         for name, (i, h) in self.sizes.items():
             setattr(self, name, nn.LSTM(i, h, batch_first=True, device="meta"))
         self.out = nn.Linear(1, 1, device="meta")
-        self.to_empty(device=device if device is not None else "cpu")
+        self.to_empty(device=resolve_device(device))
         g = generator if generator is not None else torch.Generator().manual_seed(0)
         tree = {name: lstm_init(g, i, h) for name, (i, h) in self.sizes.items()}
         tree["out"] = linear_init(g, 1, 1)

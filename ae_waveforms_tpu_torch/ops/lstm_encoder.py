@@ -3,8 +3,11 @@
 The port of ``ae_waveforms_tpu/ops/lstm_pallas.py::encode_fused``: the
 LSTM-AE encoder (1 -> H1 -> H2 -> latent, torch gate order, summed biases,
 zero initial state) as one kernel over all T steps, returning the last
-hidden state of layer 3.  The kernel is ``csrc/lstm_encoder.cu``; its
-source note says what bounds it and how it is laid out.
+hidden state of layer 3.  The kernel is ``csrc/lstm_encoder.cu``: clusters
+of 8 blocks that hold the weights in shared memory, the three layers skewed
+so that one cluster barrier serves each time step; its source note says
+what bounds it and how it is laid out.  ``encoder_plan`` chooses the rows
+per cluster, the number of clusters and the shared memory of a block.
 
 ``encode_fused`` launches the kernel for CUDA tensors and runs
 ``encode_fused_reference`` for CPU tensors; nothing falls back from one to
@@ -15,14 +18,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 
 from ae_waveforms_tpu_torch.models.layers import lstm_cell
 from ae_waveforms_tpu_torch.ops import _build
 
-__all__ = ["encode_fused", "encode_fused_reference"]
+__all__ = ["EncoderPlan", "encode_fused", "encode_fused_reference", "encoder_plan", "max_active_clusters"]
 
 
 def encode_fused_reference(params: Dict, x: torch.Tensor) -> torch.Tensor:
@@ -44,12 +47,75 @@ def encode_fused_reference(params: Dict, x: torch.Tensor) -> torch.Tensor:
     return h3
 
 
+# The launch plan.  A cluster of CLUSTER blocks carries R batch rows.  The
+# H100 holds 15 clusters of 8 of this kernel's blocks at once
+# (cudaOccupancyMaxActiveClusters, printed by chip_smoke.py), so the plan
+# keeps the grid to MAX_CLUSTERS clusters, one wave, wherever R <= 32
+# allows it (B <= 480).  SMEM_BUDGET is the shared memory one block may use
+# on the H100 (227 KB); the kernel checks the bytes it is given against its
+# own layout, which _smem_floats mirrors.
+CLUSTER = 8
+MAX_CLUSTERS = 15
+ROWS_PER_CLUSTER = (1, 2, 4, 8, 16, 32)  # the kernel's instances
+SMEM_BUDGET = 232_448
+_SPLIT, _UNITS = 16, 2  # lanes per unit, units per warp (kSplit, kUnits in the kernel)
+
+
+class EncoderPlan(NamedTuple):
+    rows_per_cluster: int
+    clusters: int
+    smem_bytes: int
+
+
+def _smem_floats(R: int, T: int, H1: int, H2: int, L: int) -> int:
+    """Floats of one block's shared memory, as ``Layout`` in the kernel
+    counts them: both h buffers (16 inputs of padding, R values per input,
+    padded by 4 where R / 4 is even), the tile's beats, the cell state, and
+    the block's share of the weights and biases in lane order."""
+    a4 = lambda n: -(-n // 4) * 4  # noqa: E731
+    RP = R if R < 4 or (R // 4) % 2 == 1 else R + 4
+    U = [-(-h // CLUSTER) for h in (H1, H2, L)]
+    K = [H1, H1 + H2, H2 + L]
+    pairs = [-(-u // _UNITS) for u in U]
+    weights = sum(p * (-(-k // _SPLIT) * 128 + 4 * _UNITS) for p, k in zip(pairs, K)) + pairs[0] * 4 * _UNITS
+    return a4(2 * (H1 + H2 + L + _SPLIT) * RP) + a4(R * T) + a4(sum(U) * R) + weights
+
+
+def encoder_plan(B: int, H1: int, H2: int, L: int, T: int = 320) -> EncoderPlan:
+    """Rows per cluster, clusters and shared-memory bytes per block for a
+    batch of B sequences of T steps through 1 -> H1 -> H2 -> L.
+
+    R is the least of ``ROWS_PER_CLUSTER`` that keeps the grid within 15
+    clusters (32 past B = 480).  Raises ValueError when a block's share
+    does not fit its shared memory."""
+    R = next((r for r in ROWS_PER_CLUSTER if -(-B // r) <= MAX_CLUSTERS), ROWS_PER_CLUSTER[-1])
+    smem = 4 * _smem_floats(R, T, H1, H2, L)
+    if smem > SMEM_BUDGET:
+        raise ValueError(
+            f"the encoder 1->{H1}->{H2}->{L} at T={T} needs {smem} bytes of shared memory per block "
+            f"({R} rows per cluster of {CLUSTER}); a block holds {SMEM_BUDGET}"
+        )
+    return EncoderPlan(R, -(-B // R), smem)
+
+
 @functools.cache
-def _launcher():
-    fn = _build.load("lstm_encoder").lstm_encoder_launch
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _library():
+    lib = _build.load("lstm_encoder")
+    lib.lstm_encoder_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    lib.lstm_encoder_launch.restype = ctypes.c_int
+    lib.lstm_encoder_max_active_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    lib.lstm_encoder_max_active_clusters.restype = ctypes.c_int
+    return lib
+
+
+def max_active_clusters(plan: EncoderPlan, H1: int, H2: int, L: int, T: int = 320) -> int:
+    """How many clusters of ``plan`` the current card holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    active = ctypes.c_int(0)
+    rc = _library().lstm_encoder_max_active_clusters(T, H1, H2, L, *plan, ctypes.byref(active))
+    if rc != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError_t {rc}")
+    return active.value
 
 
 def _check_layer(p: Dict, in_features: int, name: str, device: torch.device) -> int:
@@ -57,9 +123,10 @@ def _check_layer(p: Dict, in_features: int, name: str, device: torch.device) -> 
     shapes = {"w_ih": (4 * H, in_features), "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
     for k, shape in shapes.items():
         t = p[k]
-        if tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device:
+        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device
+                or not t.is_contiguous()):
             raise ValueError(
-                f"{name}.{k}: expected float32 {shape} on {device}, "
+                f"{name}.{k}: expected contiguous float32 {shape} on {device}, "
                 f"got {t.dtype} {tuple(t.shape)} on {t.device}"
             )
     return H
@@ -68,8 +135,9 @@ def _check_layer(p: Dict, in_features: int, name: str, device: torch.device) -> 
 def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """LSTM-AE encoder latent (B, latent) of x (B, T, 1) float32.
 
-    On a CUDA tensor this launches the kernel (and counts the launch in
-    ``encode_fused.launches``); on a CPU tensor it runs the plain version."""
+    On a CUDA tensor this launches the kernel with the plan of
+    ``encoder_plan`` (and counts the launch in ``encode_fused.launches``);
+    on a CPU tensor it runs the plain version."""
     if x.device.type == "cpu":
         return encode_fused_reference(params, x)
     if x.device.type != "cuda":
@@ -81,24 +149,14 @@ def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
     H2 = _check_layer(p2, H1, "enc2", x.device)
     L = _check_layer(p3, H2, "enc3", x.device)
     B, T, _ = x.shape
+    plan = encoder_plan(B, H1, H2, L, T)
     out = torch.empty((B, L), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    with torch.no_grad():
-        args = [
-            p1["w_ih"].reshape(-1).contiguous(),
-            (p1["b_ih"] + p1["b_hh"]).contiguous(),
-            p1["w_hh"].T.contiguous(),
-            p2["w_ih"].T.contiguous(),
-            p2["w_hh"].T.contiguous(),
-            (p2["b_ih"] + p2["b_hh"]).contiguous(),
-            p3["w_ih"].T.contiguous(),
-            p3["w_hh"].T.contiguous(),
-            (p3["b_ih"] + p3["b_hh"]).contiguous(),
-        ]
-    rc = _launcher()(
-        x.data_ptr(), *(a.data_ptr() for a in args), out.data_ptr(),
-        B, T, H1, H2, L, torch.cuda.current_stream(x.device).cuda_stream,
+    weights = [p[k] for p in (p1, p2, p3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
+    rc = _library().lstm_encoder_launch(
+        x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
+        B, T, H1, H2, L, *plan, torch.cuda.current_stream(x.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"lstm_encoder kernel launch failed: cudaError_t {rc}")

@@ -8,11 +8,14 @@ Phases, each of which fails the run:
 1. device and build: the card's name and power limit; the three CUDA
    kernels built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel).
-2. the fused LSTM encoder kernel against its plain version at the serving
-   shape (B=64, T=320, 1->128->64->10), at latent 2 and 20 and at B=1,
-   within 2e-5; timed beside the plain version and a ``torch.nn.LSTM``
-   stack computing the same latent (device time per call from a CUDA graph
-   of many calls; time per call with launch gaps from CUDA events).
+2. the fused LSTM encoder kernel (8-block clusters) against its plain
+   version at the serving shape (B=64, T=320, 1->128->64->10), at latent 2
+   and 20, at B=1 and at B=256 (the 200-beat request's bucket), within
+   2e-5; at B=64 and 256 its launch plan and cudaOccupancyMaxActiveClusters,
+   and its time beside the plain version and a ``torch.nn.LSTM`` stack
+   computing the same latent (device time per call from a CUDA graph of
+   many calls, and per phase of its time loop; time per call with launch
+   gaps from CUDA events).
 3. the GBT routing kernel against its plain version, exactly, at the
    serving head's shapes (100 trees, 64 and 256 rows, 1..32 nodes), one
    1024-node level and the fit-time shape (96 fits, 12,500 rows).
@@ -153,13 +156,18 @@ def separated_edges(z: np.ndarray, n_bins: int, margin: float) -> np.ndarray:
 
 def phase_encoder(torch, dev):
     from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import (
+        CLUSTER, encode_fused, encode_fused_reference, encoder_plan, max_active_clusters,
+    )
 
-    beats = synthetic_beats(np.random.default_rng(1), 64)
+    beats = {64: synthetic_beats(np.random.default_rng(1), 64),
+             256: synthetic_beats(np.random.default_rng(9), 256)}
+    H1, H2 = 128, 64
+    phases = T_BEAT + 2  # the kernel's skewed time loop: one cluster barrier per phase
     result = {}
-    for B, latent in ((64, 10), (64, 2), (64, 20), (1, 10)):
+    for B, latent in ((64, 10), (64, 2), (64, 20), (1, 10), (256, 10)):
         model = LSTMAutoencoder(latent, generator=torch.Generator().manual_seed(100 + latent), device=dev)
-        x = torch.from_numpy(beats[:B, :, None].copy()).to(dev)
+        x = torch.from_numpy(beats[64 if B <= 64 else 256][:B, :, None].copy()).to(dev)
         params = model.jax_tree()
         with torch.no_grad():
             got = encode_fused(params, x)
@@ -168,8 +176,14 @@ def phase_encoder(torch, dev):
         err = (got - ref).abs().max().item()
         print(f"[lstm_encoder] B={B} T={T_BEAT} 1->128->64->{latent}: max_abs_err={err:.3e} (tolerance 2e-5)")
         check(err <= LATENT_ATOL and bool(torch.isfinite(got).all()), f"lstm_encoder disagrees at B={B} L={latent}: {err}")
-        if (B, latent) != (64, 10):
+        if latent != 10 or B == 1:
             continue
+
+        plan = encoder_plan(B, H1, H2, latent, T_BEAT)
+        active = max_active_clusters(plan, H1, H2, latent, T_BEAT)
+        print(f"[lstm_encoder] plan at B={B}: {plan.rows_per_cluster} rows per cluster of {CLUSTER} blocks, "
+              f"{plan.clusters} clusters, {plan.smem_bytes} bytes of shared memory per block; "
+              f"cudaOccupancyMaxActiveClusters {active} ({'one wave' if plan.clusters <= active else 'two or more waves'})")
 
         def library():
             h = x
@@ -185,16 +199,20 @@ def phase_encoder(torch, dev):
             # over a millisecond, so the host's launch gaps add little
             library_ms = event_ms(torch, library, 20)
             call_ms = event_ms(torch, lambda: encode_fused(params, x), 20)
-        H1, H2 = 128, 64
         flops = 2 * B * T_BEAT * (4 * H1 * (1 + H1) + 4 * H2 * (H1 + H2) + 4 * latent * (H2 + latent))
         n_params = sum(p.numel() for name in ("enc1", "enc2", "enc3") for p in params[name].values())
         bound_ms, bound_by = bound(4 * (B * T_BEAT + n_params + B * latent), flops)
-        print(f"[lstm_encoder] serving shape, device ms per call (CUDA graph): kernel {ms:.4f}, "
-              f"plain {plain_ms:.4f}; per call with launch gaps (CUDA events): kernel {call_ms:.4f}, "
-              f"torch.nn.LSTM x3 {library_ms:.4f} (its max_abs_err {lib_err:.3e}); "
+        us_per_phase = ms * 1e3 / phases
+        print(f"[lstm_encoder] B={B}, device ms per call (CUDA graph): kernel {ms:.4f} ({us_per_phase:.3f} us "
+              f"per phase of {phases}), plain {plain_ms:.4f}; per call with launch gaps (CUDA events): kernel "
+              f"{call_ms:.4f}, torch.nn.LSTM x3 {library_ms:.4f} (its max_abs_err {lib_err:.3e}); "
               f"bound {bound_ms:.4f} ms by {bound_by}")
-        result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by, library_ms=library_ms)
+        timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                      rows_per_cluster=plan.rows_per_cluster, phases=phases, us_per_phase=us_per_phase)
+        if B == 64:  # the serving bucket: the kernels line's numbers
+            result = dict(max_abs_err=err, cluster=CLUSTER, **timing)
+        else:
+            result["at_B256"] = dict(max_abs_err=err, **timing)
     return result
 
 
@@ -290,7 +308,7 @@ def phase_serve(torch):
     gbt_params = dict(max_depth=6, n_estimators=100, learning_rate=0.3)
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as results:
-        model = LSTMAutoencoder(cfg.latent_size, generator=torch.Generator().manual_seed(0))
+        model = LSTMAutoencoder(cfg.latent_size, generator=torch.Generator().manual_seed(0), device="cpu")
         save_state(os.path.join(results, "networks_autoencoder", RUN, "model_autoencoder.npz"), model.jax_tree())
 
         encode_fused.launches = route_rows.launches = 0

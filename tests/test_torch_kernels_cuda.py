@@ -32,7 +32,8 @@ def _card():
 
 
 @pytest.mark.parametrize("B,T,hidden,latent", [(64, 320, (128, 64), 10), (1, 320, (128, 64), 2),
-                                               (5, 40, (16, 8), 20)])
+                                               (5, 40, (16, 8), 20), (256, 320, (128, 64), 10),
+                                               (37, 320, (128, 64), 10)])
 def test_encoder_kernel_matches_plain(B, T, hidden, latent):
     dev = _card()
     model = LSTMAutoencoder(latent, hidden, generator=torch.Generator().manual_seed(B), device=dev)
@@ -86,6 +87,9 @@ def test_wrappers_raise_on_unsupported_input():
     model = LSTMAutoencoder(10, device=dev)
     with pytest.raises(ValueError):
         encode_fused(model.jax_tree(), torch.zeros((2, 8, 1), dtype=torch.float64, device=dev))
+    wide = LSTMAutoencoder(10, (1024, 64), device=dev)
+    with pytest.raises(ValueError):  # a block's share of the weights exceeds its shared memory
+        encode_fused(wide.jax_tree(), torch.zeros((2, 8, 1), device=dev))
     z = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         route_rows(z.float(), z, z[:, :1], z[:, :1], z[:, :1].bool())
@@ -95,4 +99,4 @@ def test_wrappers_raise_on_unsupported_input():
     with pytest.raises(ValueError):
         left_histograms_fixed(z, g, g, z, z[:, 0].cpu(), half=1, n_bins=64)
     with pytest.raises(RuntimeError):  # more bins than a block's shared memory holds
-        left_histograms_fixed(z, g, g, z, z[:, 0], half=1, n_bins=8192)
+        left_histograms_fixed(z, g, g, z, z[:, 0].contiguous(), half=1, n_bins=8192)

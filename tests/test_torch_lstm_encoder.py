@@ -16,7 +16,8 @@ from ae_waveforms_tpu.models import lstm_ae
 from ae_waveforms_tpu.ops.lstm_pallas import encode_fused as jax_encode_fused
 from ae_waveforms_tpu_torch.bridge import lstm_ae_params_from_numpy
 from ae_waveforms_tpu_torch.models import layers
-from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
+from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+from ae_waveforms_tpu_torch.ops.lstm_encoder import SMEM_BUDGET, encode_fused, encode_fused_reference, encoder_plan
 
 ATOL = 2e-5
 
@@ -89,3 +90,47 @@ def test_encoder_reference_matches_torch_lstm_stack():
             h, (h_last, _) = layer(h)
         got = encode_fused_reference(model.jax_tree(), x)
     np.testing.assert_allclose(got.numpy(), h_last[0].numpy(), atol=ATOL, rtol=0)
+
+
+# the H100 holds 15 clusters of 8 of the kernel's blocks at once, so a grid
+# stays within 15 clusters (one wave) while 32 rows per cluster allow it
+@pytest.mark.parametrize("B,rows,clusters", [(64, 8, 8), (256, 32, 8), (1, 1, 1), (37, 4, 10), (60, 4, 15),
+                                             (200, 16, 13), (512, 32, 16)])
+def test_encoder_plan_rows_and_clusters(B, rows, clusters):
+    plan = encoder_plan(B, 128, 64, 10)
+    assert (plan.rows_per_cluster, plan.clusters) == (rows, clusters)
+    assert plan.rows_per_cluster * plan.clusters >= B
+
+
+@pytest.mark.parametrize("latent", [2, 10, 20])
+def test_encoder_plan_fits_a_block_at_the_default_widths(latent):
+    for B in (1, 64, 256):
+        plan = encoder_plan(B, 128, 64, latent)
+        assert 0 < plan.smem_bytes <= SMEM_BUDGET == 232_448
+    # a block's share of the weights alone: 64 gate rows x 129, 32 x 192 and 8 x 74 floats
+    assert encoder_plan(1, 128, 64, 10, T=0).smem_bytes >= 4 * (64 * 129 + 32 * 192 + 8 * 74)
+
+
+def test_encoder_plan_refuses_an_over_wide_stack():
+    with pytest.raises(ValueError, match="shared memory"):
+        encoder_plan(64, 1024, 64, 10)
+
+
+def test_model_without_a_device_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device is cuda:0")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LSTMAutoencoder(10)
+
+
+def test_encoder_profile_instruments_the_kernel_source():
+    # the profile tool edits a copy of the kernel source as text; a change to
+    # the kernel that breaks its anchors shows here, not first on the card
+    from ae_waveforms_tpu_torch.ops import _build
+    from ae_waveforms_tpu_torch.tools.encoder_profile import variants
+
+    src = (_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text()
+    v = variants(src)
+    assert v["kernel"] == src
+    assert "barrier.cluster.arrive.relaxed" in v["relaxed"] and "cluster.sync();  // the one" not in v["relaxed"]
+    assert "read_stamps" in v["stamped"] and v["stamped"].count("tp[") >= 6

@@ -69,7 +69,7 @@ def test_scorer_bucketing_consistent():
     from ae_waveforms_tpu_torch.models.registry import model_def
 
     model = model_def(model_cfg.model_class).build(4, hidden_sizes=(8, 6),
-                                                   generator=torch.Generator().manual_seed(1))
+                                                   generator=torch.Generator().manual_seed(1), device="cpu")
     scorer = Scorer(model, model_cfg.model_class, device="cpu")
     w = np.random.default_rng(1).standard_normal((20, 40)).astype(np.float32)
     a = scorer.score(w[:5], bucket=16)
