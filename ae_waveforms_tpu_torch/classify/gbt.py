@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ae_waveforms_tpu_torch import resolve_device
-from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pow2
+from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins, pow2
 from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
 
 __all__ = [
@@ -117,6 +117,8 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
     dev = bins.device
     B, D = n_bins, max_depth
     binsT = bins.T.contiguous()
+    # the histogram kernel's layout of the pool, made once; the CPU's plain version reads binsT
+    packed = pack_bins(binsT, n_bins) if dev.type == "cuda" else None
     lam = LAMBDA
     bin_ok = torch.arange(B, device=dev) < B - 1  # bin B-1 puts every row left
     gam = gammas.double()[:, None, None, None]
@@ -139,7 +141,8 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
         for depth in range(D):
             n_nodes = 2**depth
             half = max(n_nodes // 2, 1)
-            q = left_histograms_fixed(binsT, g, h, node_of, shift, half=half, n_bins=B).view(S, 2 * half, F, B)
+            q = left_histograms_fixed(binsT, g, h, node_of, shift, half=half, n_bins=B, packed=packed)
+            q = q.view(S, 2 * half, F, B)
             if depth == 0:
                 # the root is node 0, a "left child": its rows are every row
                 Gq, Hq = q[:, :1], q[:, 1:]

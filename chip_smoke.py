@@ -28,11 +28,14 @@ Phases, each of which fails the run:
    1e-5).  Prints p50 latency and beats/s per request size, and where the
    device time of a 64-beat score goes, by kernel, with the idle share.
 5. the GBT histogram kernel at the fit's shapes (96 fits x 12,000 rows at
-   1..16 left children, 24 fits at 32..256, 25 fits x 12,500 rows at 16):
-   its fixed-point sums equal to its plain version's and bit-identical
-   across two calls; scaled to float32, within 1e-4 absolute and 1e-5
-   relative of the float64 plain version.  Timed beside the plain version
-   and a float32 ``torch.einsum`` one-hot contraction.
+   1..16 left children, and at 16 with g = h = 0 on 46% of rows as in a
+   fit; 24 fits at 32..256; 25 fits x 12,500 rows at 16; the smoke grid's 6
+   fits at 1, 16 and 256, fit-like): its fixed-point sums equal to its plain
+   version's and bit-identical across two calls; scaled to float32, within
+   1e-4 absolute and 1e-5 relative of the float64 plain version.  Prints
+   ``hist_plan``'s launch and ``cudaOccupancyMaxActiveClusters`` for it, and
+   times the kernel beside the plain version and a float32 ``torch.einsum``
+   one-hot contraction.
 6. the classify path through its entry point: a synthetic latent data dir
    (6,500 control and 6,500 sick rows of 10 latents) and
    ``cli.classify ppv --vectorized --gs_candidates 12 --seeds 25``, the
@@ -359,41 +362,59 @@ def phase_serve(torch):
     return launches
 
 
-HIST_SHAPES = ([(96, 12000, half) for half in (1, 2, 4, 8, 16)]
-               + [(24, 12000, half) for half in (32, 64, 128, 256)] + [(25, 12500, 16)])
-HIST_SWEEP_SHAPE = (96, 12000, 16)  # the grid search's depth <= 6 chunks, deepest level
+# (S, n, half, share of rows with g = h = 0): the grid search's chunks of 96
+# fits at depth <= 6 and of 24 at depth <= 10, the PPV sweep's 25 seeds on
+# 12,500 rows, a fit-like level (held-out and subsampled-out rows carry no
+# weight: 1 - 0.67 * 0.8 = 46%) and the smoke grid's chunks of 6 fits
+HIST_SHAPES = ([(96, 12000, half, 0.0) for half in (1, 2, 4, 8, 16)] + [(96, 12000, 16, 0.46)]
+               + [(24, 12000, half, 0.0) for half in (32, 64, 128, 256)] + [(25, 12500, 16, 0.0)]
+               + [(6, 12000, half, 0.46) for half in (1, 16, 256)])
+HIST_SWEEP_SHAPE = (96, 12000, 16, 0.0)  # the grid search's depth <= 6 chunks, deepest level
 
 
 def phase_hist(torch, dev):
     from ae_waveforms_tpu_torch.ops.gbt_hist import (
-        fixed_point_shift, left_histograms, left_histograms_fixed, left_histograms_fixed_reference,
-        left_histograms_reference,
+        active_clusters, fixed_point_shift, hist_plan, left_histograms, left_histograms_fixed,
+        left_histograms_fixed_reference, left_histograms_reference, pack_bins,
     )
 
+    from ae_waveforms_tpu_torch.ops import gbt_hist
+
+    # the plan's mirror of the kernel's shared-memory layout
+    kernel_cells = gbt_hist._library().gbt_hist_max_cells()
+    check(kernel_cells == gbt_hist.MAX_CELLS, f"hist_plan assumes {gbt_hist.MAX_CELLS} cells a tile, the kernel "
+                                               f"holds {kernel_cells}")
+    # the clusters the card holds at once, by cluster size, which the wrapper plans with
+    active = active_clusters(dev.index)
+    print(f"[gbt_hist] cudaOccupancyMaxActiveClusters by cluster size {active}")
     rng = np.random.default_rng(5)
     F, n_bins = 10, 64
     result = {}
-    for S, n, half in HIST_SHAPES:
+    for S, n, half, zero in HIST_SHAPES:
         t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
         binsT = t(rng.integers(0, n_bins, size=(F, n)).astype(np.int32))
-        g = t(rng.uniform(-1, 1, (S, n)).astype(np.float32))
-        h = t(rng.uniform(0, 0.25, (S, n)).astype(np.float32))
+        keep = (rng.random((S, n)) >= zero).astype(np.float32)
+        g = t(rng.uniform(-1, 1, (S, n)).astype(np.float32) * keep)
+        h = t(rng.uniform(0, 0.25, (S, n)).astype(np.float32) * keep)
         node = t(rng.integers(0, 2 * half, size=(S, n)).astype(np.int32))
         shift = fixed_point_shift(g, h)
+        packed = pack_bins(binsT, n_bins)  # as the fit packs its pool once
         kw = dict(half=half, n_bins=n_bins)
-        q1 = left_histograms_fixed(binsT, g, h, node, shift, **kw)
-        q2 = left_histograms_fixed(binsT, g, h, node, shift, **kw)
+        q1 = left_histograms_fixed(binsT, g, h, node, shift, packed=packed, **kw)
+        q2 = left_histograms_fixed(binsT, g, h, node, shift, packed=packed, **kw)
         exact = torch.equal(q1, left_histograms_fixed_reference(binsT, g, h, node, shift, **kw))
         got = left_histograms(binsT, g, h, node, shift=shift, **kw)
         ref = left_histograms_reference(binsT, g, h, node, **kw)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         close = bool(((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
-        check(torch.equal(q1, q2), f"gbt_hist is not bit-identical across two calls at S={S} n={n} half={half}")
-        check(exact, f"gbt_hist fixed-point sums differ from the plain version at S={S} n={n} half={half}")
-        check(close, f"gbt_hist disagrees with the float64 plain version at S={S} n={n} half={half}: {err}")
+        where = f"S={S} n={n} half={half} zero rows {zero:.2f}"
+        check(torch.equal(q1, q2), f"gbt_hist is not bit-identical across two calls at {where}")
+        check(exact, f"gbt_hist fixed-point sums differ from the plain version at {where}")
+        check(close, f"gbt_hist disagrees with the float64 plain version at {where}: {err}")
 
-        ms = graph_ms(torch, lambda: left_histograms_fixed(binsT, g, h, node, shift, **kw), 20)
+        plan = hist_plan(S, n, F, n_bins, half, active)
+        ms = graph_ms(torch, lambda: left_histograms_fixed(binsT, g, h, node, shift, packed=packed, **kw), 20)
         f32_ms = graph_ms(torch, lambda: left_histograms(binsT, g, h, node, shift=shift, **kw), 20)
         plain_ms = graph_ms(torch, lambda: left_histograms_fixed_reference(binsT, g, h, node, shift, **kw), 3)
         # the JAX package's non-kernel path: one float32 contraction of the
@@ -403,21 +424,27 @@ def phase_hist(torch, dev):
         onehot = (binsT.T[:, :, None] == torch.arange(n_bins, device=dev)).float().reshape(n, F * n_bins)
         library_ms = graph_ms(torch, lambda: torch.einsum("snc,nb->scb", A, onehot), 3)
         del sel, A, onehot
-        matched = int(((node % 2 == 0) & (node < 2 * half)).sum().item())
-        # bytes: bins, g, h, node ids and shifts read once, the function's
-        # float32 histograms written once (the kernel's int64 write is a cost
-        # of its design, printed beside); operations: a g and an h add per
-        # (matched row, feature)
+        # rows that add: a left child of the level with g or h not zero
+        matched = int(((node % 2 == 0) & (node < 2 * half) & ((g != 0) | (h != 0))).sum().item())
+        # bytes: bins (at the bytes a bin needs, one where n_bins <= 255), g,
+        # h, node ids and shifts read once, the function's float32
+        # histograms written once (the kernel's int64 write is a cost of its
+        # design, printed beside); operations: a g and an h add per (row that
+        # adds, feature)
         out_cells = S * 2 * half * F * n_bins
-        bound_ms, bound_by = bound(4 * F * n + 12 * S * n + 4 * S + 4 * out_cells, 2 * F * matched)
-        int64_bound_ms, _ = bound(4 * F * n + 12 * S * n + 4 * S + 8 * out_cells, 2 * F * matched)
-        print(f"[gbt_hist] S={S} n={n} half={half}: fixed point exact and bit-identical, float32 max_abs_err "
-              f"{err:.3e} (tolerance 1e-4 + 1e-5 |ref|); device ms per call (CUDA graph): kernel {ms:.5f}, "
-              f"float32 entry {f32_ms:.5f}, plain {plain_ms:.5f}, einsum {library_ms:.5f}; "
-              f"bound {bound_ms:.6f} ms by {bound_by} ({int64_bound_ms:.6f} ms with an int64 write)")
-        if (S, n, half) == HIST_SWEEP_SHAPE:
+        in_bytes = (1 if n_bins <= 255 else 2) * F * n + 12 * S * n + 4 * S
+        bound_ms, bound_by = bound(in_bytes + 4 * out_cells, 2 * F * matched)
+        int64_bound_ms, _ = bound(in_bytes + 8 * out_cells, 2 * F * matched)
+        print(f"[gbt_hist] {where}: fixed point exact and bit-identical, float32 max_abs_err {err:.3e} "
+              f"(tolerance 1e-4 + 1e-5 |ref|); plan C={plan.cluster} tile {plan.node_tile} nodes x "
+              f"{plan.feature_tile} features, {plan.walks} walks, {plan.clusters} clusters of {plan.threads} "
+              f"threads, {plan.smem_bytes} bytes per block, cudaOccupancyMaxActiveClusters {active[plan.cluster]}; "
+              f"device ms per call (CUDA graph): kernel {ms:.5f}, float32 entry (packs per call) {f32_ms:.5f}, "
+              f"plain {plain_ms:.5f}, einsum {library_ms:.5f}; bound {bound_ms:.6f} ms by {bound_by} "
+              f"({int64_bound_ms:.6f} ms with an int64 write)")
+        if (S, n, half, zero) == HIST_SWEEP_SHAPE:
             result = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                          library_ms=library_ms)
+                          library_ms=library_ms, plan=plan._asdict(), max_active_clusters=active[plan.cluster])
     return result
 
 
