@@ -11,9 +11,9 @@ The fit grows S fits at once (the JAX package's vmapped fit axis, written
 out), level by level.  Each level makes one ``left_histograms_fixed`` call
 (the histogram kernel) for all S fits, the prefix-sum, gain and argmax
 epilogue in plain torch, and one ``route_rows`` call (the routing kernel).
-``predict_margin`` routes **all trees at once**: the tree axis is the
-routing kernel's fit axis.  The tree loop never waits for the device:
-nothing in it copies to the host.
+``predict_margin`` routes **all trees through all levels in one launch**
+(``route_levels``): the tree axis is the routing kernel's fit axis.  The
+tree loop never waits for the device: nothing in it copies to the host.
 
 Numbers.  The histograms are exact integer sums of g and h in fixed point
 (``ops/gbt_hist.py``), so the sibling subtraction, the prefix sums over
@@ -36,7 +36,7 @@ import torch
 
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins, pow2
-from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+from ae_waveforms_tpu_torch.ops.gbt_route import route_levels, route_rows
 
 __all__ = [
     "GBTClassifier", "GBTEnsemble", "compute_bin_edges", "bin_data", "fit_gbt", "fit_gbt_multi",
@@ -302,12 +302,9 @@ def fit_gbt_sweep(bins, y, row_weights, seeds, learning_rates, gammas, min_child
 
 
 def _route_leaves(ens: GBTEnsemble, bins: torch.Tensor, max_depth: int) -> torch.Tensor:
-    """(T, max_nodes) trees x (n, F) bins -> (T, n) leaf weights."""
-    binsT = bins.T.contiguous()
-    node_of = torch.zeros((ens.feat.shape[0], bins.shape[0]), dtype=torch.int32, device=bins.device)
-    for depth in range(max_depth):
-        lo, hi = 2**depth - 1, 2 ** (depth + 1) - 1
-        node_of = route_rows(binsT, node_of, ens.feat[:, lo:hi], ens.thresh[:, lo:hi], ens.is_split[:, lo:hi])
+    """(T, max_nodes) trees x (n, F) bins -> (T, n) leaf weights: every
+    level of every tree routed in one call, from the root."""
+    node_of = route_levels(bins.T, None, ens.feat, ens.thresh, ens.is_split, 0, max_depth)
     return torch.gather(ens.leaf, 1, node_of.long())
 
 

@@ -6,7 +6,8 @@ the final hidden state of the last LSTM.  It runs through the fused encoder
 kernel (``ops.lstm_encoder.encode_fused``).
 Decoder: latent repeated across the T steps -> LSTM latent->64 -> LSTM
 64->128 -> LSTM 128->1 -> Linear(1, 1).  It runs through ``torch.nn.LSTM``
-layers: in the JAX package it is a plain scan outside any kernel.
+layers (cuDNN on the card, kept out of TF32): in the JAX package it is a
+plain scan outside any kernel.
 
 Input layout (B, T, 1).  ``jax_tree`` names the parameters as the JAX
 package does, which is how checkpoints and the bridge carry them across.
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ae_waveforms_tpu_torch import resolve_device
+from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
 from ae_waveforms_tpu_torch.models.layers import linear_init, lstm_init
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
@@ -83,11 +84,15 @@ class LSTMAutoencoder(nn.Module):
         return encode_fused(self.jax_tree(), x)
 
     def decode(self, z: torch.Tensor, seq_len: int) -> torch.Tensor:
-        """latent (B, latent) -> reconstruction (B, seq_len, 1)."""
+        """latent (B, latent) -> reconstruction (B, seq_len, 1), in full
+        float32 whatever the process's TF32 flags, which it leaves as it
+        found them."""
         h = z[:, None, :].expand(-1, seq_len, -1).contiguous()
-        for layer in (self.dec1, self.dec2, self.dec3):
-            h, _ = layer(h)
-        return self.out(h)
+        with cudnn_fp32():
+            for layer in (self.dec1, self.dec2, self.dec3):
+                h, _ = layer(h)
+        # the 1 x 1 output layer as a multiply-add: no matmul, so no TF32
+        return h * self.out.weight[:, 0] + self.out.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(self.encode(x), x.shape[1])

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ae_waveforms_tpu_torch import full_fp32, resolve_device
+from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.core.config import TrainConfig
 from ae_waveforms_tpu_torch.models.registry import model_def
 from ae_waveforms_tpu_torch.train.data import layout_waves
@@ -36,7 +36,6 @@ class Scorer:
         """The model's parameters move to ``device`` (the first CUDA device
         unless named) at construction, so requests never re-upload them."""
         self.device = resolve_device(device)
-        full_fp32()
         self.model_class = model_class
         self.channel_first = model_def(model_class).channel_first
         self.model = model.to(self.device).eval()

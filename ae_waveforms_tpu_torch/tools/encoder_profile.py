@@ -23,49 +23,45 @@ first block.  Widths 1 -> 128 -> 64 -> 10, T = 320, weights from a seed.
 from __future__ import annotations
 
 import ctypes
-import re
-import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from ae_waveforms_tpu_torch import full_fp32
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.lstm_encoder import _smem_floats, encode_fused_reference, encoder_plan
+from ae_waveforms_tpu_torch.tools.variants import build, sub
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
+from chip_smoke import graph_ms  # noqa: E402
 
 OUT = _build.BUILD_DIR.parent / "encoder_profile"
 T, H1, H2, L = 320, 128, 64, 10
 PARTS = ("k loop", "split sums", "cell", "remote stores", "cluster.sync", "phase")
 
 
-def _sub(src: str, old: str, new: str, count: int = 1) -> str:
-    if src.count(old) != count:
-        raise RuntimeError(f"the kernel source changed; {old!r} found {src.count(old)} times, not {count}")
-    return src.replace(old, new)
-
-
 def variants(src: str) -> dict:
     sync = "    cluster.sync();  // the one barrier of the phase"
-    relaxed = _sub(src, sync, '    asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n\\t'
-                              'barrier.cluster.wait.aligned;\\n" ::: "memory");  //')
-    s = _sub(src, "namespace {\n", "__device__ long long g_stamps[32][6];\nnamespace {\n")
-    s = _sub(s, "const float4* wx1, int lane,\n", "const float4* wx1, int lane, long long (&tp)[6],\n")
-    s = _sub(s, "  const int split = lane % kSplit,", "  const long long q0 = clock64();\n  const int split = lane % kSplit,")
-    s = _sub(s, "  float gate[4];\n", "  const long long q1 = clock64();\n  tp[0] += q1 - q0;\n  float gate[4];\n")
-    s = _sub(s, "  if (!own) return;\n", "  const long long q2 = clock64();\n  tp[1] += q2 - q1;\n  if (!own) return;\n")
-    s = _sub(s, "  if (dup == 0) ly.c[", "  const long long q3 = clock64();\n  tp[2] += q3 - q2;\n  if (dup == 0) ly.c[")
-    s = _sub(s, "cluster.map_shared_rank(hn, dst)[idx] = hv;\n}\n",
-             "cluster.map_shared_rank(hn, dst)[idx] = hv;\n  tp[3] += clock64() - q3;\n}\n")
-    s = _sub(s, "lane, cluster);", "lane, tp, cluster);", 3)
-    s = _sub(s, "  for (int s = 0; s < T + 2; ++s) {\n",
-             "  long long tp[6] = {0, 0, 0, 0, 0, 0};\n  for (int s = 0; s < T + 2; ++s) {\n    const long long c0 = clock64();\n")
-    s = _sub(s, sync, "    const long long c1 = clock64();\n    cluster.sync();\n"
-                      "    tp[4] += clock64() - c1;\n    tp[5] += clock64() - c0;  //")
-    s = _sub(s, "  // h3 at step T - 1 was written",
-             "  if (blockIdx.x == 0 && lane == 0)\n    for (int z = 0; z < 6; ++z) g_stamps[warp][z] = tp[z];\n"
-             "  // h3 at step T - 1 was written")
+    relaxed = sub(src, sync, '    asm volatile("barrier.cluster.arrive.relaxed.aligned;\\n\\t'
+                             'barrier.cluster.wait.aligned;\\n" ::: "memory");  //')
+    s = sub(src, "namespace {\n", "__device__ long long g_stamps[32][6];\nnamespace {\n")
+    s = sub(s, "const float4* wx1, int lane,\n", "const float4* wx1, int lane, long long (&tp)[6],\n")
+    s = sub(s, "  const int split = lane % kSplit,", "  const long long q0 = clock64();\n  const int split = lane % kSplit,")
+    s = sub(s, "  float gate[4];\n", "  const long long q1 = clock64();\n  tp[0] += q1 - q0;\n  float gate[4];\n")
+    s = sub(s, "  if (!own) return;\n", "  const long long q2 = clock64();\n  tp[1] += q2 - q1;\n  if (!own) return;\n")
+    s = sub(s, "  if (dup == 0) ly.c[", "  const long long q3 = clock64();\n  tp[2] += q3 - q2;\n  if (dup == 0) ly.c[")
+    s = sub(s, "cluster.map_shared_rank(hn, dst)[idx] = hv;\n}\n",
+            "cluster.map_shared_rank(hn, dst)[idx] = hv;\n  tp[3] += clock64() - q3;\n}\n")
+    s = sub(s, "lane, cluster);", "lane, tp, cluster);", 3)
+    s = sub(s, "  for (int s = 0; s < T + 2; ++s) {\n",
+            "  long long tp[6] = {0, 0, 0, 0, 0, 0};\n  for (int s = 0; s < T + 2; ++s) {\n    const long long c0 = clock64();\n")
+    s = sub(s, sync, "    const long long c1 = clock64();\n    cluster.sync();\n"
+                     "    tp[4] += clock64() - c1;\n    tp[5] += clock64() - c0;  //")
+    s = sub(s, "  // h3 at step T - 1 was written",
+            "  if (blockIdx.x == 0 && lane == 0)\n    for (int z = 0; z < 6; ++z) g_stamps[warp][z] = tp[z];\n"
+            "  // h3 at step T - 1 was written")
     s += ('\n// copies the stamps out and clears them for the next run\n'
           'extern "C" int read_stamps(long long* host) {\n'
           '  const cudaError_t err = cudaMemcpyFromSymbol(host, g_stamps, sizeof(g_stamps));\n'
@@ -76,52 +72,17 @@ def variants(src: str) -> dict:
     return {"kernel": src, "relaxed": relaxed, "stamped": s}
 
 
-def build(sources: dict) -> dict:
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    procs = {}
-    for name, src in sources.items():
-        (OUT / f"{name}.cu").write_text(src)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-o", str(OUT / f"{name}.so"), str(OUT / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=open(OUT / f"{name}.log", "w"), stderr=subprocess.STDOUT)
-    libs = {}
-    for name, proc in procs.items():
-        log = (OUT / f"{name}.log").read_text() if proc.wait() == 0 else None
-        if log is None:
-            raise RuntimeError(f"nvcc failed for {name}:\n{(OUT / f'{name}.log').read_text()}")
-        registers = re.findall(r"Used (\d+) registers", log)
-        print(f"[build] {name}: registers per thread by instance {registers}")
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        lib.lstm_encoder_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.lstm_encoder_launch.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
-
-
-def graph_ms(fn, reps: int = 10) -> float:
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("encoder_profile: no CUDA device is present", file=sys.stderr)
         return 2
-    full_fp32()
     dev = torch.device("cuda:0")
-    libs = build(variants((_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text()))
+    libs = {}
+    for name, (lib, registers) in build(OUT, variants((_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text())).items():
+        print(f"[build] {name}: registers per thread by instance {registers}")
+        lib.lstm_encoder_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        lib.lstm_encoder_launch.restype = ctypes.c_int
+        libs[name] = lib
     model = LSTMAutoencoder(L, generator=torch.Generator().manual_seed(0), device=dev)
     params = model.jax_tree()
     weights = [params[f"enc{i}"][k] for i in (1, 2, 3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
@@ -139,7 +100,7 @@ def main() -> int:
                 if rc != 0:
                     raise RuntimeError(f"{name}: cudaError_t {rc}")
 
-            ms = graph_ms(call)
+            ms = graph_ms(torch, call, 10)
             err = (out - ref).abs().max().item()
             print(f"[encoder] {name} B={B} R={plan[0]} clusters={plan[1]}: {ms:.4f} ms per call, "
                   f"{ms * 1e3 / (T + 2):.3f} us per phase; max_abs_err {err:.3e}")

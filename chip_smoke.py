@@ -16,17 +16,26 @@ Phases, each of which fails the run:
    computing the same latent (device time per call from a CUDA graph of
    many calls, and per phase of its time loop; time per call with launch
    gaps from CUDA events).
-3. the GBT routing kernel against its plain version, exactly, at the
-   serving head's shapes (100 trees, 64 and 256 rows, 1..32 nodes), one
-   1024-node level and the fit-time shape (96 fits, 12,500 rows).
+3. the GBT routing kernel against its plain version, exactly, also with
+   bins and thresholds across int32 (staged and in place): one level
+   at the serving head's widths (100 trees, 64 and 256 rows, 1..32 nodes),
+   one 1024-node level and the fit's deepest levels (96 fits x 12,500 rows
+   at 32 nodes, the deep bucket's 24 x 12,000 at 512, the PPV sweep's 25 x
+   12,500 at 128); every level of a tree heap in one launch (the serving
+   head's 100 trees of depth 6 on 64 and 256 rows, the PPV prediction's
+   12,500 trees of depth 8 on 500 rows) and levels [2, 6) from mid-heap
+   ids.  Prints each launch's plan and its time beside the plain version
+   and its bound.
 4. the serving path through its entry points: a run directory written with
    the port's ``save_state``, ``Scorer.from_run`` -> ``warmup`` ->
    ``score`` for 1, 37, 64 and 200 beats, then again with a 100-tree
    depth-6 GBT head attached through the bridge.  Both kernels' launch
-   counts must rise during the run, and every output must match the same
-   ``Scorer`` on the CPU (latents 2e-5, reconstruction 1e-4, probability
-   1e-5).  Prints p50 latency and beats/s per request size, and where the
-   device time of a 64-beat score goes, by kernel, with the idle share.
+   counts must rise during the run, a 64-beat score must route its trees
+   in one launch, and every output must match the same ``Scorer`` on the
+   CPU (latents 2e-5, reconstruction 1e-4, probability 1e-5), with the
+   process's TF32 flags at torch's defaults: the model keeps its own
+   precision.  Prints p50 latency and beats/s per request size, and where
+   the device time of a 64-beat score goes, by kernel, with the idle share.
 5. the GBT histogram kernel at the fit's shapes (96 fits x 12,000 rows at
    1..16 left children, and at 16 with g = h = 0 on 46% of rows as in a
    fit; 24 fits at 32..256; 25 fits x 12,500 rows at 16; the smoke grid's 6
@@ -40,9 +49,10 @@ Phases, each of which fails the run:
    (6,500 control and 6,500 sick rows of 10 latents) and
    ``cli.classify ppv --vectorized --gs_candidates 12 --seeds 25``, the
    harness at full width.  The histogram and routing kernels' launch
-   counts must rise.  Prints the grid search's and PPV sweep's wall
-   seconds, fold-fits per second, ms per tree per fit and the median AUC
-   and PPV.
+   counts must rise, the routing kernel's by one a fit level (as the
+   histogram kernel's) and one for the PPV sweep's prediction.  Prints the
+   grid search's and PPV sweep's wall seconds, fold-fits per second, ms per
+   tree per fit and the median AUC and PPV.
 7. determinism: a 4-fit sweep on 2,000 rows, fitted twice on the card
    (bit-identical ensembles and margins) and once on the CPU (the same
    trees, margins within 5e-3).
@@ -158,6 +168,7 @@ def separated_edges(z: np.ndarray, n_bins: int, margin: float) -> np.ndarray:
 
 
 def phase_encoder(torch, dev):
+    from ae_waveforms_tpu_torch import cudnn_fp32
     from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
     from ae_waveforms_tpu_torch.ops.lstm_encoder import (
         CLUSTER, encode_fused, encode_fused_reference, encoder_plan, max_active_clusters,
@@ -188,10 +199,11 @@ def phase_encoder(torch, dev):
               f"{plan.clusters} clusters, {plan.smem_bytes} bytes of shared memory per block; "
               f"cudaOccupancyMaxActiveClusters {active} ({'one wave' if plan.clusters <= active else 'two or more waves'})")
 
-        def library():
+        def library():  # cuDNN in full float32, as the kernel computes
             h = x
-            for layer in (model.enc1, model.enc2, model.enc3):
-                h, (h_last, _) = layer(h)
+            with cudnn_fp32():
+                for layer in (model.enc1, model.enc2, model.enc3):
+                    h, (h_last, _) = layer(h)
             return h_last[0]
 
         with torch.no_grad():
@@ -219,39 +231,108 @@ def phase_encoder(torch, dev):
     return result
 
 
-def route_inputs(torch, dev, rng, S, n, n_nodes, F=10, n_bins=64):
+# bins and thresholds anywhere in int32, past 2^23 and 2^24 and at the ends
+INT32_EDGES = np.array([-2**31, -2**31 + 1, -2**24 - 1, -2**24, -2**23, -1, 0, 1, 2**23 - 1, 2**23, 2**24,
+                        2**24 + 1, 2**31 - 2, 2**31 - 1], np.int64)
+
+
+def _values(rng, size, n_bins, edges):
+    """Bins or thresholds: uniform below ``n_bins``, or drawn from ``edges``."""
+    return (rng.integers(0, n_bins, size=size) if edges is None else rng.choice(edges, size=size)).astype(np.int32)
+
+
+def route_inputs(torch, dev, rng, S, n, n_nodes, F=10, n_bins=64, edges=None):
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (t(rng.integers(0, n_bins, size=(F, n)).astype(np.int32)),
+    return (t(_values(rng, (F, n), n_bins, edges)),
             t(rng.integers(0, n_nodes, size=(S, n)).astype(np.int32)),
             t(rng.integers(0, F, size=(S, n_nodes)).astype(np.int32)),
-            t(rng.integers(0, n_bins, size=(S, n_nodes)).astype(np.int32)),
+            t(_values(rng, (S, n_nodes), n_bins, edges)),
             t(rng.random((S, n_nodes)) < 0.7))
 
 
-def phase_route(torch, dev):
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows, route_rows_reference
+def heap_inputs(torch, dev, rng, S, n, d0, d1, F=10, n_bins=64, edges=None):
+    """The pool as a predict call passes it, ``bins.T`` of (n, F) bins, level
+    d0's node ids (None from the root) and S random heaps of depth d1."""
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    M = 2**d1
+    is_split = rng.random((S, M)) < 0.8
+    is_split[:, -1] = False  # the heap's inert slot
+    return (t(_values(rng, (n, F), n_bins, edges)).T,
+            None if d0 == 0 else t(rng.integers(0, 2**d0, size=(S, n)).astype(np.int32)),
+            t(rng.integers(0, F, size=(S, M)).astype(np.int32)),
+            t(_values(rng, (S, M), n_bins, edges)),
+            t(is_split), d0, d1)
 
+
+# one level (S, n, nodes): the serving head's levels, a 1024-node level and
+# the fit's deepest: the grid search's depth <= 6 chunks (ROUTE_FIT_SHAPE,
+# 28,000 of a classify run's launches are such levels), the deep bucket's 24
+# fits at 512 nodes and the PPV sweep's 25 seeds at 128
+ROUTE_FIT_SHAPE = (96, 12500, 32)
+ROUTE_LEVEL_SHAPES = ([(100, n, 2**d) for n in (64, 256) for d in range(6)]
+                      + [(100, 256, 1024), ROUTE_FIT_SHAPE, (24, 12000, 512), (25, 12500, 128)])
+# levels [d0, d1) in one launch (S, n, d0, d1): the serving head's 100 trees
+# of depth 6 (ROUTE_SERVE_SHAPE, one launch a score), the PPV sweep's
+# prediction (25 seeds x 500 trees of depth 8 on 500 test rows) and mid-heap
+ROUTE_SERVE_SHAPE = (100, 64, 0, 6)
+ROUTE_HEAP_SHAPES = [ROUTE_SERVE_SHAPE, (100, 256, 0, 6), (12500, 500, 0, 8), (100, 256, 2, 6)]
+
+
+def phase_route(torch, dev):
+    from ae_waveforms_tpu_torch.ops.gbt_route import (
+        route_levels, route_levels_reference, route_plan, route_rows, route_rows_reference,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(2)
-    shapes = [(100, n, 2**d) for n in (64, 256) for d in range(6)] + [(100, 256, 1024), (96, 12500, 32)]
+    cases = ([("rows", shape, route_inputs(torch, dev, rng, *shape)) for shape in ROUTE_LEVEL_SHAPES]
+             + [("levels", shape, heap_inputs(torch, dev, rng, *shape)) for shape in ROUTE_HEAP_SHAPES])
+    # bins and thresholds anywhere in int32: the decision stays the integer
+    # compare, staged (the fit's shape, a heap) and in place (a small launch)
+    for kind, shape, inputs in (("rows", ROUTE_FIT_SHAPE, route_inputs), ("rows", (100, 64, 32), route_inputs),
+                                ("levels", ROUTE_SERVE_SHAPE, heap_inputs)):
+        args = inputs(torch, dev, rng, *shape, edges=INT32_EDGES)
+        fn, ref_fn = (route_rows, route_rows_reference) if kind == "rows" else (route_levels, route_levels_reference)
+        mismatches = int((fn(*args) != ref_fn(*args)).sum().item())
+        print(f"[gbt_route] {kind} {shape}, bins and thresholds across int32: {mismatches} rows differ")
+        check(mismatches == 0, f"gbt_route differs at {shape} with bins and thresholds across int32")
     result = {}
-    for S, n, n_nodes in shapes:
-        args = route_inputs(torch, dev, rng, S, n, n_nodes)
-        got = route_rows(*args)
-        ref = route_rows_reference(*args)
+    for kind, shape, args in cases:
+        fn, ref_fn = (route_rows, route_rows_reference) if kind == "rows" else (route_levels, route_levels_reference)
+        got = fn(*args)
+        ref = ref_fn(*args)
         torch.cuda.synchronize()
         mismatches = int((got != ref).sum().item())
-        check(mismatches == 0, f"gbt_route differs at S={S} n={n} n_nodes={n_nodes}: {mismatches} rows")
-        ms = graph_ms(torch, lambda: route_rows(*args), 50)
-        plain_ms = graph_ms(torch, lambda: route_rows_reference(*args), 20)
-        call_ms = event_ms(torch, lambda: route_rows(*args), 50)
         F = args[0].shape[0]
-        bound_ms, bound_by = bound(4 * F * n + 2 * 4 * S * n + S * n_nodes * 9, 3 * S * n)
-        print(f"[gbt_route] S={S} n={n} n_nodes={n_nodes}: exact; device ms per call (CUDA graph): "
-              f"kernel {ms:.5f}, plain {plain_ms:.5f}; kernel per call with launch gaps {call_ms:.5f}; "
-              f"bound {bound_ms:.6f} ms by {bound_by}")
-        if (S, n, n_nodes) == (100, 64, 32):  # the serving head's deepest level
-            result = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                          bound_by=bound_by, library_ms=None)
+        if kind == "rows":
+            S, n, width = shape
+            levels, node_in, where = 1, True, f"S={S} n={n} one level of {width} nodes"
+        else:
+            S, n, d0, d1 = shape
+            width, levels, node_in = 2**d0, d1 - d0, d0 > 0
+            where = f"S={S} n={n} levels [{d0}, {d1}) in one launch"
+        check(mismatches == 0, f"gbt_route differs at {where}: {mismatches} rows")
+        plan = route_plan(S, n, F, levels, width, sms)
+        big = S * n > 10**6
+        ms = graph_ms(torch, lambda: fn(*args), 20 if big else 50)
+        plain_ms = graph_ms(torch, lambda: ref_fn(*args), 3 if big else 20)
+        call_ms = event_ms(torch, lambda: fn(*args), 50)
+        # bytes: the pool and the node ids out, the ids in (none from the
+        # root), the levels' splits (feature, bin, flag: 9 bytes a node);
+        # operations: a compare, a shift and an add per row and level
+        nodes = width * (2**levels - 1)
+        bound_ms, bound_by = bound(4 * F * n + 4 * S * n * (2 if node_in else 1) + 9 * S * nodes, 3 * S * n * levels)
+        print(f"[gbt_route] {where}: exact; plan {plan.chunk} fits x {plan.tile} rows a block "
+              f"({'staged' if plan.staged else 'in place'}, {plan.vec} ids a task), {plan.blocks} blocks of "
+              f"{plan.threads} threads, {plan.smem_bytes} bytes; device ms per call (CUDA graph): kernel {ms:.5f}, "
+              f"plain {plain_ms:.5f}; kernel per call with launch gaps {call_ms:.5f}; bound {bound_ms:.6f} ms by "
+              f"{bound_by} (kernel {ms / bound_ms:.2f}x)")
+        timing = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                      plan=plan._asdict())
+        if kind == "rows" and shape == ROUTE_FIT_SHAPE:  # the kernels line's numbers
+            result.update(timing)
+        elif kind == "levels" and shape == ROUTE_SERVE_SHAPE:
+            result["at_serving"] = timing
     return result
 
 
@@ -282,9 +363,9 @@ def serve_breakdown(torch, scorer, waves, reps: int = 10) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     counts = {e.key: e.count for e in prof.key_averages()}
     seen = {g: sum(c for k, c in counts.items() if groups[g][0] in k) for g in ("lstm_encoder", "gbt_route")}
-    if seen != {"lstm_encoder": reps, "gbt_route": 6 * reps}:
+    if seen != {"lstm_encoder": reps, "gbt_route": reps}:
         print(f"[serve] breakdown not measured: torch.profiler recorded {seen} of "
-              f"{{'lstm_encoder': {reps}, 'gbt_route': {6 * reps}}} launches")
+              f"{{'lstm_encoder': {reps}, 'gbt_route': {reps}}} launches")
         return
     per = dict.fromkeys([*groups, "other"], 0.0)
     for e in prof.key_averages():
@@ -332,6 +413,7 @@ def phase_serve(torch):
         scorer.score(pool[:64])
         print(f"[serve] launches per score of 64 beats: lstm_encoder {encode_fused.launches}, "
               f"gbt_route {route_rows.launches}")
+        check(encode_fused.launches == route_rows.launches == 1, "a score launches each kernel once")
 
         for n in SIZES:
             times = []
@@ -500,6 +582,8 @@ def phase_classify(torch):
         launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches}
     print(f"[classify] launches during the classify run: {launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the classify path: {launches}")
+    check(launches["gbt_route"] == launches["gbt_hist"] + 1,
+          f"a fit level routes in one launch and the PPV prediction in one: {launches}")
     grid_s, gs = timed["grid"]
     ppv_s, _ = timed["ppv"]
     best = gs["best_params"]
@@ -631,10 +715,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 2
-    from ae_waveforms_tpu_torch import full_fp32
     from ae_waveforms_tpu_torch.ops import _build
 
-    full_fp32()
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]

@@ -21,7 +21,10 @@ from ae_waveforms_tpu_torch.ops.gbt_hist import (
     left_histograms_reference,
     pack_bins,
 )
-from ae_waveforms_tpu_torch.ops.gbt_route import route_rows, route_rows_reference
+from ae_waveforms_tpu_torch.classify.gbt import GBTEnsemble, _route_leaves
+from ae_waveforms_tpu_torch.ops.gbt_route import (
+    route_levels, route_levels_reference, route_rows, route_rows_reference, route_spans,
+)
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
 
 pytestmark = pytest.mark.cuda
@@ -30,7 +33,6 @@ pytestmark = pytest.mark.cuda
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda:0")
 
 
@@ -50,7 +52,50 @@ def test_encoder_kernel_matches_plain(B, T, hidden, latent):
     assert (got - ref).abs().max().item() <= 2e-5
 
 
-@pytest.mark.parametrize("S,n,n_nodes", [(100, 64, 1), (100, 256, 32), (3, 1000, 1024)])
+def test_decoder_keeps_full_float32_under_tf32_flags():
+    """With both TF32 flags on, the model on the card agrees with the CPU
+    within the reconstruction tolerance, and leaves both flags on.  The
+    same decoder run without the model's own switch, so in TF32, must miss
+    that tolerance by far on the second model (its decoder's weights
+    tripled, as a trained model's outgrow their init): the check can see
+    the fault it guards against."""
+    dev = _card()
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 320, 1)).astype(np.float32))
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        for scale in (1.0, 3.0):
+            gpu_model, cpu_model = LSTMAutoencoder(device=dev), LSTMAutoencoder(device="cpu")
+            with torch.no_grad():
+                for model in (gpu_model, cpu_model):
+                    for layer in (model.dec1, model.dec2, model.dec3):
+                        layer.weight_ih_l0.mul_(scale)
+                        layer.weight_hh_l0.mul_(scale)
+                gpu = gpu_model(x.to(dev)).cpu()
+                cpu = cpu_model(x)
+                h = gpu_model.encode(x.to(dev))[:, None, :].expand(-1, x.shape[1], -1).contiguous()
+                for layer in (gpu_model.dec1, gpu_model.dec2, gpu_model.dec3):  # cuDNN under the TF32 flags
+                    h, _ = layer(h)
+                tf32 = (h * gpu_model.out.weight[:, 0] + gpu_model.out.bias).cpu()
+            err, tf32_err = (gpu - cpu).abs().max().item(), (tf32 - cpu).abs().max().item()
+            print(f"decoder weights x{scale}: the model on the card against the CPU {err:.3e}, "
+                  f"its decoder in TF32 {tf32_err:.3e} (tolerance 1e-4)")
+            assert [f.allow_tf32 for f in flags] == [True, True]
+            assert err <= 1e-4
+        assert tf32_err >= 1e-3
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+# (S, n, n_nodes): the serving head's levels, a wide level, the fit's deepest
+# levels (96 fits at 32 nodes, the deep bucket's 24 at 512, the PPV sweep's 25
+# at 128), rows not a multiple of the 4-id vector, one fit
+@pytest.mark.parametrize("S,n,n_nodes", [(100, 64, 1), (100, 256, 32), (3, 1000, 1024), (96, 12500, 32),
+                                         (24, 12000, 512), (25, 12500, 128), (7, 1001, 8), (5, 37, 4),
+                                         (1, 12500, 32), (3, 1000, 2**16)])
 def test_route_kernel_matches_plain_exactly(S, n, n_nodes):
     dev = _card()
     rng = np.random.default_rng(n_nodes)
@@ -62,6 +107,91 @@ def test_route_kernel_matches_plain_exactly(S, n, n_nodes):
     do = t(rng.random((S, n_nodes)) < 0.7)
     got = route_rows(binsT, node, bf, bb, do)
     assert torch.equal(got, route_rows_reference(binsT, node, bf, bb, do))
+
+
+# bins and thresholds anywhere in int32 (past 2^23 and 2^24, the ends):
+# staged and in place, one level and a heap
+INT32_EDGES = np.array([-2**31, -2**31 + 1, -2**24 - 1, -2**24, -2**23 - 1, -2**23, -1, 0, 1, 2**23 - 1, 2**23,
+                        2**24, 2**24 + 1, 2**31 - 2, 2**31 - 1], np.int64)
+
+
+@pytest.mark.parametrize("S,n,d0,d1", [(96, 12500, 5, 6), (100, 64, 5, 6), (3, 1000, 10, 11), (100, 256, 0, 6),
+                                       (9, 1001, 3, 8)])
+def test_route_kernel_is_exact_for_any_int32(S, n, d0, d1):
+    dev = _card()
+    rng = np.random.default_rng(S + d1)
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    bins_t = t(rng.choice(INT32_EDGES, size=(n, 10)).astype(np.int32)).T
+    node = None if d0 == 0 else t(rng.integers(0, 2**d0, size=(S, n)).astype(np.int32))
+    feat = t(rng.integers(0, 10, size=(S, 2**d1)).astype(np.int32))
+    thresh = t(rng.choice(INT32_EDGES, size=(S, 2**d1)).astype(np.int32))
+    split = t(rng.random((S, 2**d1)) < 0.8)
+    before = route_rows.launches
+    got = route_levels(bins_t, node, feat, thresh, split, d0, d1)
+    assert route_rows.launches == before + 1
+    assert torch.equal(got, route_levels_reference(bins_t, node, feat, thresh, split, d0, d1))
+    if d1 == d0 + 1:
+        c = 2**d0 - 1
+        level = (feat[:, c:2 * c + 1], thresh[:, c:2 * c + 1], split[:, c:2 * c + 1])
+        assert torch.equal(route_rows(bins_t, node, *level), got)
+
+
+def _heaps(rng, dev, S, D, F=10):
+    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return (t(rng.integers(-1, F + 1, size=(S, 2**D)).astype(np.int32)),
+            t(rng.integers(0, 64, size=(S, 2**D)).astype(np.int32)), t(rng.random((S, 2**D)) < 0.8))
+
+
+# (S, n, d0, d1, strided): full heaps from the root at the serving head's
+# shapes and the PPV prediction's, mid-heap ranges, bins as a ``bins.T``
+# view or contiguous, rows not a multiple of 4, one tree
+@pytest.mark.parametrize("S,n,d0,d1,strided", [
+    (100, 64, 0, 6, True), (100, 256, 0, 6, True), (12500, 500, 0, 8, True), (100, 256, 2, 6, False),
+    (9, 1001, 3, 8, True), (1, 37, 0, 4, False), (50, 300, 5, 6, True),
+])
+def test_route_levels_kernel_matches_plain_exactly(S, n, d0, d1, strided):
+    dev = _card()
+    rng = np.random.default_rng(S + n + d0)
+    bins = torch.from_numpy(rng.integers(0, 64, size=(n, 10)).astype(np.int32)).to(dev)
+    bins_t = bins.T if strided else bins.T.contiguous()
+    # level d0's ids, a tenth of them outside the level (negative or too large)
+    node = None if d0 == 0 else torch.from_numpy(
+        rng.integers(-(2**d0) // 10 - 1, 2**d0 + 2**d0 // 10 + 1, size=(S, n)).astype(np.int32)).to(dev)
+    heaps = _heaps(rng, dev, S, d1)
+    before = route_rows.launches
+    got = route_levels(bins_t, node, *heaps, d0, d1)
+    assert route_rows.launches == before + 1
+    assert torch.equal(got, route_levels_reference(bins_t, node, *heaps, d0, d1))
+
+
+def test_route_leaves_is_one_launch():
+    dev = _card()
+    rng = np.random.default_rng(3)
+    feat, thresh, split = _heaps(rng, dev, 100, 6)
+    ens = GBTEnsemble(feat, thresh, split, torch.from_numpy(rng.standard_normal((100, 64)).astype(np.float32)).to(dev),
+                      torch.tensor(0.3, device=dev))
+    bins = torch.from_numpy(rng.integers(0, 64, size=(64, 10)).astype(np.int32)).to(dev)
+    before = route_rows.launches
+    leaf = _route_leaves(ens, bins, 6)
+    assert route_rows.launches == before + 1
+    cpu = GBTEnsemble(*(x.cpu() for x in ens))
+    assert torch.equal(leaf.cpu(), _route_leaves(cpu, bins.cpu(), 6))
+
+
+def test_route_leaves_at_depth_16():
+    """Trees deeper than one launch's shared memory holds route in the
+    launches of ``route_spans``: levels [0, 14) staged, then one each."""
+    dev = _card()
+    rng = np.random.default_rng(16)
+    feat, thresh, split = _heaps(rng, dev, 3, 16)
+    ens = GBTEnsemble(feat, thresh, split, torch.from_numpy(rng.standard_normal((3, 2**16)).astype(np.float32)).to(dev),
+                      torch.tensor(0.3, device=dev))
+    bins = torch.from_numpy(rng.integers(0, 64, size=(3000, 10)).astype(np.int32)).to(dev)
+    before = route_rows.launches
+    leaf = _route_leaves(ens, bins, 16)
+    assert route_rows.launches == before + len(route_spans(10, 0, 16)) == before + 3
+    cpu = GBTEnsemble(*(x.cpu() for x in ens))
+    assert torch.equal(leaf.cpu(), _route_leaves(cpu, bins.cpu(), 16))
 
 
 # (S, n, half, n_bins, share of rows with g = h = 0): the fit's shapes, rows
@@ -107,6 +237,9 @@ def test_wrappers_raise_on_unsupported_input():
     z = torch.zeros((2, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         route_rows(z.float(), z, z[:, :1], z[:, :1], z[:, :1].bool())
+    heap = torch.zeros((2, 2**6), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):  # a heap of 6 levels holds no level 6
+        route_levels(z, None, heap, heap, heap.bool(), 0, 7)
     g = torch.zeros((2, 4), device=dev)
     with pytest.raises(ValueError):
         left_histograms_fixed(z, g.double(), g, z, z[:, 0], half=1, n_bins=64)

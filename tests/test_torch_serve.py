@@ -76,3 +76,28 @@ def test_scorer_bucketing_consistent():
     b = scorer.score(w, bucket=16)
     assert a["latents"].shape == (5, 4) and b["latents"].shape == (20, 4)
     np.testing.assert_allclose(a["latents"], b["latents"][:5], atol=1e-6)
+
+
+@pytest.mark.parametrize("matmul,cudnn", [(True, True), (False, False), (True, False)])
+def test_decoder_and_scorer_keep_the_tf32_flags(matmul, cudnn):
+    """The decoder keeps its cuDNN LSTMs out of TF32 inside a scoped switch:
+    building a Scorer and scoring leave the process's TF32 flags as they
+    were."""
+    from ae_waveforms_tpu_torch.models.registry import model_def
+
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f, v in zip(flags, (matmul, cudnn)):
+            f.allow_tf32 = v
+        cfg = TrainConfig()
+        model = model_def(cfg.model_class).build(4, hidden_sizes=(8, 6), generator=torch.Generator().manual_seed(2),
+                                                 device="cpu")
+        scorer = Scorer(model, cfg.model_class, device="cpu")
+        assert [f.allow_tf32 for f in flags] == [matmul, cudnn]
+        out = scorer.score(np.random.default_rng(2).standard_normal((3, 40)).astype(np.float32), bucket=4)
+        assert np.all(np.isfinite(out["reconstruction"]))
+        assert [f.allow_tf32 for f in flags] == [matmul, cudnn]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
