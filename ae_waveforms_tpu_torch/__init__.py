@@ -5,17 +5,22 @@ module's counterpart is found under the same path:
 
 - ``serve``        batched scoring service (``Scorer``): reconstruction,
                    latents, RMSE, PRD and an optional GBT disorder head.
-- ``models``       the LSTM autoencoder as an ``nn.Module`` and its registry.
+- ``models``       the LSTM autoencoder as an ``nn.Module`` (its encoder on
+                   the fused kernel in eval mode, on cuDNN in train mode)
+                   and its registry.
 - ``ops``          hand-written CUDA kernels for Hopper (``csrc/*.cu``), each
                    beside its plain PyTorch version: the fused LSTM encoder,
                    GBT histograms and GBT row routing.
 - ``classify``     the GBT classifier (fit and predict), LHS sampling and
                    the evaluation harness (grid search, size x seed sweep,
                    PPV analysis).
-- ``cli``          the classify CLI (``latent``, ``features``, ``ppv``).
+- ``cli``          the AE CLI (``main_ae``: train, test) and the classify
+                   CLI (``latent``, ``features``, ``ppv``).
 - ``core``         the training config and the array schema.
-- ``train``        checkpoints in the JAX package's ``.npz`` leaf format,
-                   trained-weight loading and the wave layout helper.
+- ``train``        AE training (``main_train``: the patient split, losses,
+                   schedules, optimizers, logs) and the test pass with
+                   latent export (``main_test``); checkpoints in the JAX
+                   package's ``.npz`` leaf format.
 - ``bridge``       weights carried between the two packages as numpy arrays.
 - ``tools``        measurements on the card beyond ``chip_smoke.py`` (the
                    encoder, histogram and routing kernels' profiles).

@@ -20,14 +20,15 @@ __all__ = ["lstm_ae_params_from_numpy", "lstm_ae_params_to_numpy", "gbt_from_num
 
 def lstm_ae_params_from_numpy(tree: Dict, device=None) -> LSTMAutoencoder:
     """An ``LSTMAutoencoder`` holding the JAX parameter dict's weights, on
-    ``device`` (the first CUDA device unless named); the widths are read
-    from the arrays' shapes."""
+    ``device`` (the first CUDA device unless named), in eval mode (its
+    encoder on the fused kernel, as ``Scorer`` runs it); the widths are
+    read from the arrays' shapes."""
     h1 = np.shape(tree["enc1"]["w_hh"])[1]
     h2 = np.shape(tree["enc2"]["w_hh"])[1]
     latent = np.shape(tree["enc3"]["w_hh"])[1]
     model = LSTMAutoencoder(latent, (h1, h2), device=resolve_device(device))
     model.load_jax_tree(tree)
-    return model
+    return model.eval()
 
 
 def lstm_ae_params_to_numpy(model: LSTMAutoencoder) -> Dict[str, Dict[str, np.ndarray]]:

@@ -1,0 +1,149 @@
+"""Autoencoder train/test CLI (the port of the JAX package's
+``cli/main_ae.py``; capability twin of main_ae.py:10-147).
+
+    python -m ae_waveforms_tpu_torch.cli.main_ae -m train --dataset_dir DIR --results_dir RES
+    python -m ae_waveforms_tpu_torch.cli.main_ae -m test --dataset_dir DIR --results_dir RES \\
+        --trained_model RUN_ID
+
+Same flag surface and defaults as the JAX CLI, including its ``type=bool``
+flags (``--train_shuffle``, ``--val_shuffle``, ``--plotting``,
+``--per_config_splits``: any non-empty value is true, ``""`` is false),
+plus ``--device`` (the first CUDA device unless named; ``cpu`` runs the
+plain versions).  Importable as a library (``autoencoder(custom_args)``).  Seeding covers
+numpy's legacy stream (splits, batch order) here and the torch generators
+(init, dropout) in ``main_train``.  Multi-config training and several
+devices belong to later slices of the port; their flags raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import List, Optional
+
+import numpy as np
+
+from ae_waveforms_tpu_torch.core.config import TrainConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="Settings for training or testing autoencoder models.")
+    d = TrainConfig()
+    p.add_argument("-m", "--mode", dest="mode", type=str, default=d.mode, help="train, or test (inference) mode")
+    p.add_argument("--dataset_dir", type=str, default=d.dataset_dir)
+    p.add_argument("--results_dir", type=str, default=d.results_dir)
+    p.add_argument("--seed", type=int, default=d.seed)
+    p.add_argument("--model_class", type=str, default=d.model_class)
+    p.add_argument("--latent_size", type=int, default=d.latent_size)
+    p.add_argument("--split_size_val", type=float, default=d.split_size_val)
+    p.add_argument("--split_size_test", type=float, default=d.split_size_test)
+    p.add_argument("--nr_train_ids", type=int, default=d.nr_train_ids)
+    p.add_argument("--batch_size", type=int, default=d.batch_size)
+    p.add_argument("--epochs", type=int, default=d.epochs)
+    p.add_argument("--validation_interval", type=int, default=d.validation_interval)
+    p.add_argument("--early_stopping_patience", type=int, default=d.early_stopping_patience)
+    p.add_argument("--loss", type=str, default=d.loss)
+    p.add_argument("--weight_decay", type=float, default=d.weight_decay)
+    p.add_argument("--dropout", type=float, default=d.dropout)
+    p.add_argument("--lr", type=float, default=d.lr)
+    p.add_argument("--lr_scheduler_type", type=str, default=d.lr_scheduler_type)
+    p.add_argument("--lr_scheduler_val_delay", type=int, default=d.lr_scheduler_val_delay)
+    p.add_argument("--lr_scheduler_caw_settings", type=float, nargs=3, default=list(d.lr_scheduler_caw_settings))
+    p.add_argument("--optimizer_type", type=str, default=d.optimizer_type)
+    p.add_argument("--sgd_momentum", type=float, default=d.sgd_momentum)
+    p.add_argument("--ranger_momentum", type=float, default=d.ranger_momentum)
+    p.add_argument("--ranger_threshold", type=int, default=d.ranger_threshold)
+    p.add_argument("--train_shuffle", type=bool, default=d.train_shuffle)
+    p.add_argument("--val_shuffle", type=bool, default=d.val_shuffle)
+    p.add_argument("--trained_model", type=str, default=d.trained_model)
+    p.add_argument("--plotting", type=bool, default=d.plotting)
+    p.add_argument("--tracker", type=str, default=d.tracker or "none")
+    p.add_argument("--n_devices", type=int, default=d.n_devices,
+                   help="devices to train on (0 = one; above 1 is not ported yet)")
+    p.add_argument("--model_parallel", type=int, default=d.model_parallel,
+                   help="size of the model-parallel axis (above 1 is not ported yet)")
+    # multi-config training: the JAX package's flags, not ported yet
+    p.add_argument("--seeds", type=str, default="", help="multi-config training (not ported yet)")
+    p.add_argument("--lr_sweep", type=str, default="", help="multi-config training (not ported yet)")
+    p.add_argument("--latent_sizes", type=str, default="", help="multi-config training (not ported yet)")
+    p.add_argument("--per_config_splits", type=bool, default=False,
+                   help="multi-config training (not ported yet)")
+    p.add_argument("--multi_checkpoint_every", type=int, default=0, help="multi-config training (not ported yet)")
+    p.add_argument("--multi_resume_dir", type=str, default="", help="multi-config training (not ported yet)")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the first CUDA device; 'cpu' runs the plain versions)")
+    return p
+
+
+MULTI_CONFIG_FLAGS = ("seeds", "lr_sweep", "latent_sizes", "per_config_splits", "multi_checkpoint_every",
+                      "multi_resume_dir")
+
+
+def config_from_args(args: argparse.Namespace) -> TrainConfig:
+    return TrainConfig(
+        mode=args.mode,
+        dataset_dir=args.dataset_dir,
+        results_dir=args.results_dir,
+        seed=args.seed,
+        model_class=args.model_class,
+        latent_size=args.latent_size,
+        split_size_val=args.split_size_val,
+        split_size_test=args.split_size_test,
+        nr_train_ids=args.nr_train_ids,
+        batch_size=args.batch_size,
+        epochs=args.epochs,
+        validation_interval=args.validation_interval,
+        early_stopping_patience=args.early_stopping_patience,
+        loss=args.loss,
+        weight_decay=args.weight_decay,
+        dropout=args.dropout,
+        lr=args.lr,
+        lr_scheduler_type=args.lr_scheduler_type,
+        lr_scheduler_val_delay=args.lr_scheduler_val_delay,
+        lr_scheduler_caw_settings=tuple(args.lr_scheduler_caw_settings),
+        optimizer_type=args.optimizer_type,
+        sgd_momentum=args.sgd_momentum,
+        ranger_momentum=args.ranger_momentum,
+        ranger_threshold=args.ranger_threshold,
+        train_shuffle=args.train_shuffle,
+        val_shuffle=args.val_shuffle,
+        trained_model=args.trained_model,
+        plotting=args.plotting,
+        tracker=None if args.tracker in ("none", "") else args.tracker,
+        n_devices=args.n_devices,
+        model_parallel=args.model_parallel,
+    )
+
+
+def autoencoder(custom_args: Optional[List[str]] = None):
+    from ae_waveforms_tpu_torch.train.loop import require_single_device
+
+    args = build_parser().parse_args(custom_args)
+    given = [f"--{name}" for name in MULTI_CONFIG_FLAGS if getattr(args, name)]
+    if given:
+        raise NotImplementedError(
+            f"{', '.join(given)}: multi-config training is not ported yet (ROADMAP.md, queue 1, item 8); "
+            "run it with ae_waveforms_tpu.cli.main_ae"
+        )
+    cfg = config_from_args(args)
+    require_single_device(cfg)
+    np.random.seed(cfg.seed)
+
+    mode = str(cfg.mode).lower()
+    if mode == "train":
+        from ae_waveforms_tpu_torch.train.loop import main_train
+
+        output_dir = main_train(cfg, device=args.device)
+        print(f"Training done, results and trained model saved at: {output_dir}")
+        return output_dir
+    if mode in ("test", "inference"):
+        from ae_waveforms_tpu_torch.train.eval import main_test
+
+        (_, (test_loss, rmse, rmse_samples, prd, prd_samples), (test_pred, test_true, test_c), _) = main_test(
+            cfg, device=args.device)
+        return test_loss, rmse, rmse_samples, prd, prd_samples, test_pred, test_true, test_c
+    raise ValueError(f"unknown mode {cfg.mode!r}")
+
+
+if __name__ == "__main__":
+    autoencoder()

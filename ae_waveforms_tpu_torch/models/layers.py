@@ -6,16 +6,20 @@ zero initial state, uniform(-1/sqrt(H), 1/sqrt(H)) init — the semantics of
 (``w_ih`` (4H, in), ``w_hh`` (4H, H), ``b_ih``, ``b_hh``; ``w``, ``b`` for
 a linear layer), in torch's layouts.  These functions are the plain
 versions the kernels and modules are held against.
+
+Dropout is inverted dropout as in the JAX package: keep with probability
+1 - rate, scale kept values by 1/(1 - rate).  Its mask is drawn from an
+explicit ``torch.Generator`` on the tensor's device, never the global one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
-__all__ = ["lstm_init", "lstm_cell", "lstm_apply", "linear_init", "linear_apply"]
+__all__ = ["lstm_init", "lstm_cell", "lstm_apply", "linear_init", "linear_apply", "dropout"]
 
 Params = Dict[str, torch.Tensor]
 
@@ -73,3 +77,15 @@ def linear_init(generator: torch.Generator, in_features: int, out_features: int)
 
 def linear_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ params["w"].T + params["b"]
+
+
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """x unchanged in eval or at rate 0; else each value kept with
+    probability 1 - rate (a uniform draw below it) and scaled by
+    1/(1 - rate), the rest 0."""
+    if not train or rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0)

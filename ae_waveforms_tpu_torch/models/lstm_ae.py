@@ -1,13 +1,20 @@
 """Recurrent autoencoder as an ``nn.Module`` (the port of the JAX package's
-``models/lstm_ae.py``, inference only: dropout comes with the training port).
+``models/lstm_ae.py``).
 
-Encoder: LSTM 1->128 -> LSTM 128->64 -> LSTM 64->latent; the latent code is
-the final hidden state of the last LSTM.  It runs through the fused encoder
-kernel (``ops.lstm_encoder.encode_fused``).
-Decoder: latent repeated across the T steps -> LSTM latent->64 -> LSTM
-64->128 -> LSTM 128->1 -> Linear(1, 1).  It runs through ``torch.nn.LSTM``
-layers (cuDNN on the card, kept out of TF32): in the JAX package it is a
-plain scan outside any kernel.
+Encoder: LSTM 1->128 -> dropout -> LSTM 128->64 -> dropout -> LSTM
+64->latent; the latent code is the final hidden state of the last LSTM.
+Decoder: latent repeated across the T steps -> LSTM latent->64 -> dropout
+-> LSTM 64->128 -> dropout -> LSTM 128->1 -> Linear(1, 1).
+
+In ``eval()`` mode the encoder runs through the fused encoder kernel
+(``ops.lstm_encoder.encode_fused``), which has no backward and no dropout:
+call it under ``torch.no_grad()``.  In ``train()`` mode the encoder runs
+through its ``torch.nn.LSTM`` layers, so gradients reach its weights, with
+dropout between them.  The decoder always runs through ``torch.nn.LSTM``
+layers (in the JAX package it is a plain scan outside any kernel).  Every
+cuDNN LSTM runs in full float32 (``cudnn_fp32``); the trainer runs the
+backward pass inside it too (``train.loop.train_step``).  Dropout draws from the
+``generator`` the caller passes, never from global RNG state.
 
 Input layout (B, T, 1).  ``jax_tree`` names the parameters as the JAX
 package does, which is how checkpoints and the bridge carry them across.
@@ -22,7 +29,7 @@ import torch
 from torch import nn
 
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
-from ae_waveforms_tpu_torch.models.layers import linear_init, lstm_init
+from ae_waveforms_tpu_torch.models.layers import dropout, linear_init, lstm_init
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
 __all__ = ["LSTMAutoencoder"]
@@ -79,23 +86,38 @@ class LSTMAutoencoder(nn.Module):
                     raise ValueError(f"{name}.{k}: expected shape {tuple(p.shape)}, got {tuple(v.shape)}")
                 p.copy_(v)
 
-    def encode(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, T, 1) -> latent (B, latent), through the fused kernel."""
-        return encode_fused(self.jax_tree(), x)
+    def encode(self, x: torch.Tensor, rate: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x (B, T, 1) -> latent (B, latent): through the fused kernel in
+        eval mode; through ``enc1..enc3`` with dropout ``rate`` after enc1
+        and enc2 in train mode."""
+        if not self.training:
+            return encode_fused(self.jax_tree(), x)
+        with cudnn_fp32():
+            h, _ = self.enc1(x)
+            h = dropout(h, rate, generator, True)
+            h, _ = self.enc2(h)
+            h = dropout(h, rate, generator, True)
+            _, (z, _) = self.enc3(h)
+        return z[0]
 
-    def decode(self, z: torch.Tensor, seq_len: int) -> torch.Tensor:
+    def decode(self, z: torch.Tensor, seq_len: int, rate: float = 0.0,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """latent (B, latent) -> reconstruction (B, seq_len, 1), in full
         float32 whatever the process's TF32 flags, which it leaves as it
-        found them."""
+        found them; in train mode with dropout ``rate`` after dec1 and dec2."""
         h = z[:, None, :].expand(-1, seq_len, -1).contiguous()
         with cudnn_fp32():
-            for layer in (self.dec1, self.dec2, self.dec3):
-                h, _ = layer(h)
+            h, _ = self.dec1(h)
+            h = dropout(h, rate, generator, self.training)
+            h, _ = self.dec2(h)
+            h = dropout(h, rate, generator, self.training)
+            h, _ = self.dec3(h)
         # the 1 x 1 output layer as a multiply-add: no matmul, so no TF32
         return h * self.out.weight[:, 0] + self.out.bias
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(self.encode(x), x.shape[1])
+    def forward(self, x: torch.Tensor, rate: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        z = self.encode(x, rate, generator)
+        return self.decode(z, x.shape[1], rate, generator)
 
     def latent_of(self, x: torch.Tensor) -> torch.Tensor:
         return self.encode(x)

@@ -11,7 +11,10 @@ per cluster, the number of clusters and the shared memory of a block.
 
 ``encode_fused`` launches the kernel for CUDA tensors and runs
 ``encode_fused_reference`` for CPU tensors; nothing falls back from one to
-the other.  Both agree to 2e-5 (float32, sums in another order).
+the other.  Both agree to 2e-5 (float32, sums in another order).  The
+kernel has no backward (nor has the JAX package's: training runs the
+encoder as LSTM layers), so on a CUDA tensor ``encode_fused`` refuses to
+run where autograd would want a graph through it.
 """
 
 from __future__ import annotations
@@ -137,23 +140,30 @@ def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
 
     On a CUDA tensor this launches the kernel with the plan of
     ``encoder_plan`` (and counts the launch in ``encode_fused.launches``);
-    on a CPU tensor it runs the plain version."""
+    on a CPU tensor it runs the plain version.  On a CUDA tensor it raises
+    when grad is enabled and x or a weight requires grad: the kernel writes
+    its output outside autograd, so the latent would carry no gradient."""
     if x.device.type == "cpu":
         return encode_fused_reference(params, x)
     if x.device.type != "cuda":
         raise ValueError(f"encode_fused runs on CUDA or CPU tensors, got {x.device}")
+    p1, p2, p3 = params["enc1"], params["enc2"], params["enc3"]
+    weights = [p[k] for p in (p1, p2, p3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
     if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 1 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous float32 (B, T, 1) tensor, got {x.dtype} {tuple(x.shape)}")
-    p1, p2, p3 = params["enc1"], params["enc2"], params["enc3"]
     H1 = _check_layer(p1, 1, "enc1", x.device)
     H2 = _check_layer(p2, H1, "enc2", x.device)
     L = _check_layer(p3, H2, "enc3", x.device)
     B, T, _ = x.shape
     plan = encoder_plan(B, H1, H2, L, T)
+    if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
+        raise RuntimeError(
+            "encode_fused has no backward: call it under torch.no_grad(), or train the model in "
+            "train() mode, where the encoder runs as LSTM layers"
+        )
     out = torch.empty((B, L), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    weights = [p[k] for p in (p1, p2, p3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
     rc = _library().lstm_encoder_launch(
         x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
         B, T, H1, H2, L, *plan, torch.cuda.current_stream(x.device).cuda_stream,

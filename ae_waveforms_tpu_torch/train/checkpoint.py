@@ -6,18 +6,31 @@ is an empty subtree.  The same order is reproduced here without JAX, so
 each package reads the other's checkpoints: for the LSTM autoencoder
 ``leaf_0`` is ``dec1.b_hh``, then ``dec1.b_ih``, ``dec1.w_hh``,
 ``dec1.w_ih``, ``dec2...``, ``enc1...`` and finally ``out.b``, ``out.w``.
+
+The full train state (the module's and optimizer's state dicts, the dropout
+generator's state and the step) is the port's own format: ``torch.save``'s
+bytes in the ``torch_state`` entry of an ``.npz``, read back with
+``weights_only=True``.  It cannot hold the JAX package's PRNG key, nor the
+JAX package the port's generator, so only params-only files carry across.
+Retention follows the reference: a rolling ``model_min_val_loss-<loss>``
+best checkpoint (the previous best deleted), written twice, as the full
+state and as ``..._params.npz``.
 """
 
 from __future__ import annotations
 
 import glob
+import io
 import os
-from typing import Any, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
-__all__ = ["tree_leaves", "save_state", "load_state", "latest_best"]
+__all__ = [
+    "tree_leaves", "save_state", "load_state", "save_train_state", "load_train_state", "save_best",
+    "latest_best", "latest_resumable",
+]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -73,6 +86,37 @@ def load_state(path: str, template: Any) -> Any:
     return _unflatten(template, iter(cast))
 
 
+def save_train_state(path: str, state: Dict[str, Any]) -> None:
+    """Save a full train state: a dict of state dicts, tensors and numbers."""
+    buf = io.BytesIO()
+    torch.save(state, buf)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, torch_state=np.frombuffer(buf.getvalue(), np.uint8))
+
+
+def load_train_state(path: str) -> Dict[str, Any]:
+    """A state ``save_train_state`` wrote, its tensors on the CPU."""
+    with np.load(path, allow_pickle=False) as z:
+        if "torch_state" not in z.files:
+            raise ValueError(f"{path} holds no train state of this package (a JAX package checkpoint?)")
+        raw = z["torch_state"].tobytes()
+    return torch.load(io.BytesIO(raw), map_location="cpu", weights_only=True)
+
+
+def save_best(results_dir: str, val_loss: float, state: Dict[str, Any], params: Any = None) -> str:
+    """Rolling best checkpoint with the loss in the filename; deletes the
+    previous best (reference retention policy, run_train.py:85-92).  Writes
+    the full train state and, from ``params``, a params-only snapshot in
+    the JAX package's leaf format."""
+    for old in glob.glob(os.path.join(results_dir, "model_min_val_loss-*")):
+        os.remove(old)
+    path = os.path.join(results_dir, f"model_min_val_loss-{np.around(val_loss, 4)}.npz")
+    save_train_state(path, state)
+    if params is not None:
+        save_state(path.replace(".npz", "_params.npz"), params)
+    return path
+
+
 def latest_best(results_dir: str) -> str:
     """Best params-only checkpoint path, falling back to the final snapshot
     (load_model.py:47-53 semantics)."""
@@ -83,3 +127,12 @@ def latest_best(results_dir: str) -> str:
     if os.path.isfile(final):
         return final
     raise FileNotFoundError(f"no checkpoint found in {results_dir}")
+
+
+def latest_resumable(results_dir: str) -> str:
+    """Full train-state checkpoint for mid-run resume."""
+    best = [p for p in sorted(glob.glob(os.path.join(results_dir, "model_min_val_loss-*.npz")))
+            if not p.endswith("_params.npz")]
+    if best:
+        return best[-1]
+    raise FileNotFoundError(f"no resumable checkpoint in {results_dir}")

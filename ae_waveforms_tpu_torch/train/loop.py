@@ -1,0 +1,355 @@
+"""AE training loop (the port of the JAX package's ``train/loop.py``;
+capability twin of functions_ae/run_train.py).
+
+The training and validation arrays live on the device.  An epoch is a
+host-side sequence of chunks of steps (``validation_interval`` steps, the
+first chunk one step), each step a batch gather on the device, the forward
+and backward pass and the optimizer update (``train_step``).  The steps'
+losses stay on the device and come to the host once per chunk, as the JAX
+package's scanned chunk returns them; learning rates are computed on the
+host from the step count.  Validation runs between chunks, exactly at the
+reference's cadence (after local steps 0, V, 2V, ... of each epoch,
+run_train.py:317-319), with the model in eval mode: the encoder then runs
+through the fused encoder kernel, one launch per validation batch.
+
+Replicated behaviours: loss/optimizer/scheduler selection
+(run_train.py:205-248), every-10-steps CSV logging (:305-309), validation
+CSV (:327-333), StepLR stepping only on validation-plateau events
+(:343-348), early stopping with best-checkpoint retention (:30-103), epoch
+rescale for ``nr_train_ids`` runs via the 228,543-sample target (:472), and
+final model save (:537-538).  The split and the batch order come from the
+global ``np.random`` stream seeded with ``cfg.seed``, as in the JAX package,
+so they are equal there and here; init and dropout draw from
+``torch.Generator``s seeded with ``cfg.seed``, which cannot give
+``jax.random``'s numbers.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
+from ae_waveforms_tpu_torch.core.config import TrainConfig
+from ae_waveforms_tpu_torch.core.schema import ArraySet, load_arrays
+from ae_waveforms_tpu_torch.models.registry import model_def
+from ae_waveforms_tpu_torch.train import checkpoint as ckpt
+from ae_waveforms_tpu_torch.train.data import layout_waves, split_datasets
+from ae_waveforms_tpu_torch.train.logs import CsvLogs, make_tracker, setup_logging
+from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
+from ae_waveforms_tpu_torch.train.profiling import trace
+from ae_waveforms_tpu_torch.train.schedules import (
+    cosine_annealing_warm_restarts,
+    cosine_annealing_warmup_hard_restarts,
+)
+
+__all__ = ["main_train", "batch_loss", "train_step", "validate", "effective_epochs", "require_single_device"]
+
+
+def require_single_device(cfg: TrainConfig) -> None:
+    """The port trains on one device; more belong to a later slice."""
+    if cfg.n_devices > 1 or cfg.model_parallel > 1:
+        raise NotImplementedError(
+            "--n_devices and --model_parallel above 1: training over several devices is the multi-device "
+            "slice of the port (ROADMAP.md, queue 1, item 11); run with --n_devices 0 --model_parallel 1"
+        )
+
+
+def _elementwise_loss(kind: str, pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
+    if kind == "mse" or kind == "rmse":
+        return (pred - true) ** 2
+    if kind == "mae":  # SmoothL1
+        d = torch.abs(pred - true)
+        return torch.where(d < 1.0, 0.5 * d**2, d - 0.5)
+    raise ValueError(f"unsupported loss {kind!r}")
+
+
+def _finalize_loss(kind: str, total, count):
+    mean = total / count
+    return torch.sqrt(mean) if kind == "rmse" else mean
+
+
+def _lr_schedule(cfg: TrainConfig, steps_per_epoch: int) -> Tuple[Callable, bool]:
+    if cfg.lr_scheduler_type == "CosineAnnealing":
+        t0 = int(steps_per_epoch / cfg.lr_scheduler_caw_settings[0])
+        return cosine_annealing_warm_restarts(cfg.lr, t0, eta_min=1e-4), False
+    if cfg.lr_scheduler_type == "CosineAnnealingWarmup":
+        resets, warm_val, eta_min = cfg.lr_scheduler_caw_settings
+        t0 = int(steps_per_epoch / resets)
+        warmup = int(warm_val * cfg.validation_interval)
+        return cosine_annealing_warmup_hard_restarts(cfg.lr, t0, warmup, eta_min), False
+    # StepLR: constant within the schedule; the plateau event scale multiplies it
+    return (lambda step: torch.tensor(cfg.lr, dtype=torch.float32)), True
+
+
+def effective_epochs(cfg: TrainConfig, n_train: int) -> int:
+    """Epoch count, rescaled when training on a case-id subsample so the
+    total step budget targets ~228,543 samples (run_train.py:472 quirk —
+    the upstream formula divides the target by steps-per-epoch, i.e. the
+    units are 'samples over batches', preserved as-is)."""
+    if cfg.nr_train_ids > 0:
+        return int(np.ceil(cfg.target_train_samples / (n_train / cfg.batch_size)))
+    return cfg.epochs
+
+
+def _batched_indices(n: int, batch: int, perm: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad a permutation to full batches; returns (steps, B) indices + mask."""
+    steps = math.ceil(n / batch)
+    padded = np.zeros(steps * batch, np.int32)
+    padded[:n] = perm
+    mask = np.zeros(steps * batch, bool)
+    mask[:n] = True
+    return padded.reshape(steps, batch), mask.reshape(steps, batch)
+
+
+def batch_loss(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+               generator: torch.Generator, rate: float, loss_kind: str) -> torch.Tensor:
+    """The loss of the batch ``data_x[idx]`` through ``model`` in its
+    current mode (padding rows, mask False, weigh nothing), with its
+    autograd graph.  The gather and the loss are marked "gather and loss"
+    for ``torch.profiler``."""
+    with record_function("gather and loss"):
+        x = data_x.index_select(0, idx)
+        w = mask.to(x.dtype)
+    pred = model(x, rate, generator)
+    with record_function("gather and loss"):
+        elem = _elementwise_loss(loss_kind, pred, x)
+        per = elem.reshape(elem.shape[0], -1).mean(dim=1)
+        return _finalize_loss(loss_kind, (per * w).sum() / w.sum().clamp_min(1.0), 1.0)
+
+
+def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
+               mask: torch.Tensor, lr: float, generator: torch.Generator, rate: float, loss_kind: str) -> torch.Tensor:
+    """One step on the batch ``data_x[idx]`` (``batch_loss``); returns the
+    batch's loss before the update, on the device.  The backward pass runs
+    inside ``cudnn_fp32`` as the forward does: cuDNN's RNN backward reads
+    the TF32 flag when it runs, not when its forward ran.  The optimizer
+    marks its own step for ``torch.profiler``."""
+    loss = batch_loss(model, data_x, idx, mask, generator, rate, loss_kind)
+    optimizer.zero_grad(set_to_none=True)
+    with cudnn_fp32():
+        loss.backward()
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return loss.detach()
+
+
+def validate(model: nn.Module, val_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, loss_kind: str) -> float:
+    """The loss over every unmasked row, the model in eval mode (the fused
+    encoder kernel on the card) under no_grad; the model is left in train
+    mode."""
+    total = torch.zeros((), device=val_x.device)
+    count = torch.zeros((), device=val_x.device)
+    model.eval()
+    with torch.no_grad():
+        for bidx, bmask in zip(idx, mask):
+            x = val_x.index_select(0, bidx)
+            elem = _elementwise_loss(loss_kind, model(x), x)
+            w = bmask.to(x.dtype)[:, None, None]
+            total = total + torch.sum(elem * w)
+            count = count + torch.sum(w) * elem.shape[1] * elem.shape[2]
+    model.train()
+    return float(_finalize_loss(loss_kind, total, count))
+
+
+def main_train(
+    cfg: TrainConfig,
+    arrays: Optional[ArraySet] = None,
+    max_steps: Optional[int] = None,
+    resume_dir: Optional[str] = None,
+    profile_dir: Optional[str] = None,
+    device=None,
+    init_params: Optional[Dict] = None,
+) -> str:
+    """Train an autoencoder on ``device`` (the first CUDA device unless
+    named); returns the results directory.
+
+    ``resume_dir``: a previous run's results dir of this package — the full
+    train state (params + optimizer + dropout generator + step) is restored
+    from its best resumable checkpoint and training continues.
+    ``profile_dir``: wraps the first training chunk in a ``torch.profiler``
+    trace.  ``init_params``: the initial parameters as the JAX package's
+    numpy tree (as ``model_init.npz`` holds them) in place of the seeded
+    init, so that a run can start where another package's did.
+    """
+    t_start = time.time()
+    np.random.seed(cfg.seed)
+    require_single_device(cfg)
+    if cfg.compute_dtype not in ("default", None):
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: the port trains in float32 only")
+    device = resolve_device(device)
+
+    run_id = time.strftime("%y-%m-%d-%H%M%S")
+    results_dir = os.path.join(cfg.results_dir, "networks_autoencoder", run_id)
+    os.makedirs(results_dir, exist_ok=True)
+    logger = setup_logging(results_dir)
+    tags = [
+        cfg.model_class, f"latent_size={cfg.latent_size}", f"batch_size={cfg.batch_size}",
+        f"lr={cfg.lr}", cfg.lr_scheduler_type, f"validation_interval={cfg.validation_interval}",
+        f"early_stopping_patience={cfg.early_stopping_patience}", cfg.loss, cfg.optimizer_type,
+        f"dropout={cfg.dropout}", f"weight_decay={cfg.weight_decay}", f"seed={cfg.seed}",
+        f"dataset_dir={cfg.dataset_dir}", f"nr_train_ids={cfg.nr_train_ids}",
+    ]
+    tracker = make_tracker(cfg.tracker, results_dir, tags)
+    csvlog = CsvLogs(results_dir)
+
+    mdef = model_def(cfg.model_class)
+    model = mdef.build(cfg.latent_size, generator=torch.Generator().manual_seed(cfg.seed), device=device)
+    if init_params is not None:
+        model.load_jax_tree(init_params)
+    model.train()
+    ckpt.save_state(os.path.join(results_dir, "model_init.npz"), model.jax_tree())
+
+    logger.info(f"Start loading data from dataset version: {cfg.dataset_dir}")
+    if arrays is None:
+        arrays = load_arrays(cfg.dataset_dir)
+    tr_mask, va_mask, te_mask = split_datasets(
+        arrays.info, cfg.dataset_dir, results_dir, cfg.split_size_val, cfg.split_size_test, cfg.nr_train_ids
+    )
+    logger.info(f"Data loading done. Length of Data: {len(arrays)} samples")
+
+    n_train = int(tr_mask.sum())
+    n_val = int(va_mask.sum())
+    if n_train == 0 or n_val == 0:
+        raise ValueError(
+            f"empty split (train={n_train}, val={n_val}, test={int(te_mask.sum())}): "
+            "with few case ids the seeded patient-level draw can leave a split empty — "
+            "increase the dataset, adjust split fractions, or change the seed"
+        )
+    epochs = effective_epochs(cfg, n_train)
+
+    x_all = layout_waves(np.asarray(arrays.waves, np.float32), mdef.channel_first)
+    train_x = torch.from_numpy(np.ascontiguousarray(x_all[tr_mask])).to(device)
+    val_x = torch.from_numpy(np.ascontiguousarray(x_all[va_mask])).to(device)
+
+    optimizer = make_optimizer(
+        cfg.optimizer_type,
+        model.parameters(),
+        cfg.lr,
+        cfg.weight_decay,
+        momentum=cfg.sgd_momentum,
+        ranger_momentum=cfg.ranger_momentum,
+        ranger_threshold=cfg.ranger_threshold,
+    )
+    generator = torch.Generator(device=device).manual_seed(cfg.seed)
+
+    resume_step = 0
+    if resume_dir is not None:
+        state = ckpt.load_train_state(ckpt.latest_resumable(resume_dir))
+        model.load_state_dict(state["model"])
+        optimizer.load_state_dict(state["optimizer"])
+        generator.set_state(state["generator"])
+        resume_step = int(state["step"])
+        logger.info(f"Resumed full train state from {resume_dir} at step {resume_step}")
+
+    steps_per_epoch = math.ceil(n_train / cfg.batch_size)
+    schedule, is_steplr = _lr_schedule(cfg, steps_per_epoch)
+    val_idx, val_m = (torch.from_numpy(a).to(device) for a in
+                      _batched_indices(n_val, cfg.batch_size, np.arange(n_val, dtype=np.int32)))
+
+    # early-stopping state (run_train.py:30-103)
+    patience_counter, early_stop = 0, False
+    valid_loss_min = np.inf
+    best_path = None
+    lr_valid_counter = 0
+    lr_events = 0
+    global_step = resume_step
+
+    logger.info(f"Start training with learning rate scheduler: {cfg.lr_scheduler_type}")
+    V = cfg.validation_interval
+    for epoch in range(1, epochs + 1):
+        t_epoch = time.time()
+        tracker.log("epoch", epoch)
+        # train_shuffle=False iterates in dataset order (DataLoader semantics);
+        # val order never matters for the loss (reference default val_shuffle=False)
+        perm = (
+            np.random.permutation(n_train).astype(np.int32)
+            if cfg.train_shuffle
+            else np.arange(n_train, dtype=np.int32)
+        )
+        idx_all, mask_all = (torch.from_numpy(a).to(device) for a in _batched_indices(n_train, cfg.batch_size, perm))
+
+        # chunk layout replicating "validate after local step 0, V, 2V, ...":
+        local = 0
+        while local < steps_per_epoch and not early_stop:
+            n_steps = 1 if local == 0 else min(V, steps_per_epoch - local)
+            lr_scale = torch.tensor(0.5**lr_events if is_steplr else 1.0, dtype=torch.float32)
+            first_chunk = epoch == 1 and local == 0
+            losses, lrs = [], []
+            with trace(profile_dir if first_chunk else None):
+                for j in range(n_steps):
+                    lr_t = float(schedule(global_step + j) * lr_scale)
+                    losses.append(train_step(model, optimizer, train_x, idx_all[local + j], mask_all[local + j],
+                                             lr_t, generator, cfg.dropout, cfg.loss))
+                    lrs.append(lr_t)
+            losses = torch.stack(losses).cpu().numpy()  # the chunk's one wait for the device
+            for j in range(n_steps):
+                s_local = local + j
+                if s_local % 10 == 0 and s_local != 0:
+                    csvlog.train_step(epoch, s_local, lrs[j], float(losses[j]))
+                tracker.log("Train Loss", float(losses[j]))
+                tracker.log("Batch number", s_local)
+                tracker.log("Learning Rate", lrs[j])
+            global_step += n_steps
+            local += n_steps
+            last_local = local - 1
+            train_loss_local = float(losses[-1])
+            lr_current = lrs[-1]
+
+            if last_local % V == 0:
+                val_loss = validate(model, val_x, val_idx, val_m, cfg.loss)
+                logger.info(f"[Epoch: {epoch}, step: {last_local}] / lr = {lr_current}")
+                logger.info(f"\tTrain loss: {train_loss_local}, \t Validation loss: {val_loss}")
+                csvlog.validation(epoch, last_local, lr_current, train_loss_local, val_loss)
+                tracker.log("Validation loss", val_loss)
+
+                # StepLR plateau events (run_train.py:343-348)
+                if is_steplr and cfg.lr_scheduler_val_delay > 0:
+                    if val_loss >= valid_loss_min:
+                        lr_valid_counter += 1
+                    if lr_valid_counter == cfg.lr_scheduler_val_delay:
+                        lr_events += 1
+                        lr_valid_counter = 0
+
+                # early stopping + rolling best checkpoint
+                if val_loss < valid_loss_min:
+                    state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                             "generator": generator.get_state(), "step": global_step}
+                    best_path = ckpt.save_best(results_dir, val_loss, state, params=model.jax_tree())
+                    valid_loss_min = val_loss
+                    patience_counter = 0
+                else:
+                    patience_counter += 1
+                    logger.info(f"EarlyStopping counter: {patience_counter} out of {cfg.early_stopping_patience}")
+                    if patience_counter >= cfg.early_stopping_patience:
+                        early_stop = True
+                        logger.warning(f"Early Stopping @ epoch : {epoch} / step : {last_local}")
+
+            if max_steps is not None and global_step >= max_steps:
+                early_stop = True
+
+        logger.info(
+            f"End training epoch number {epoch} from {epochs} / at {time.time() - t_epoch:.1f}s; "
+            f"best validation loss = {valid_loss_min}"
+        )
+        if early_stop:
+            break
+
+    # final model: best params if any, else current (run_train.py:537-538)
+    final_params = model.jax_tree()
+    if best_path is not None:
+        final_params = ckpt.load_state(best_path.replace(".npz", "_params.npz"), final_params)
+    ckpt.save_state(os.path.join(results_dir, "model_autoencoder.npz"), final_params)
+    logger.info(f"Training is finished. Best validation loss: {valid_loss_min}")
+    logger.info(f"Execution finished and saved at: {results_dir} ({time.time() - t_start:.1f}s)")
+    csvlog.close()
+    tracker.close()
+    return results_dir

@@ -10,8 +10,9 @@ Phases, each of which fails the run:
    source, in parallel).
 2. the fused LSTM encoder kernel (8-block clusters) against its plain
    version at the serving shape (B=64, T=320, 1->128->64->10), at latent 2
-   and 20, at B=1 and at B=256 (the 200-beat request's bucket), within
-   2e-5; at B=64 and 256 its launch plan and cudaOccupancyMaxActiveClusters,
+   and 20, at B=1, at B=128 (the trainer's validation and test batch) and
+   at B=256 (the 200-beat request's bucket), within 2e-5; at B=64, 128 and
+   256 its launch plan and cudaOccupancyMaxActiveClusters,
    and its time beside the plain version and a ``torch.nn.LSTM`` stack
    computing the same latent (device time per call from a CUDA graph of
    many calls, and per phase of its time loop; time per call with launch
@@ -56,6 +57,24 @@ Phases, each of which fails the run:
 7. determinism: a 4-fit sweep on 2,000 rows, fitted twice on the card
    (bit-identical ensembles and margins) and once on the CPU (the same
    trees, margins within 5e-3).
+8. AE train and test through ``cli.main_ae`` at the default model's full
+   width (B=128, T=320, Adam, StepLR, mse, dropout 0.2): 16,384 synthetic
+   beats over 128 case ids, ``-m train`` for 2 epochs (validation every 25
+   steps), then ``-m test`` on its run.  Every loss must be finite, the last
+   validation loss below the first, every weight moved from its init, the
+   encoder kernel launched once per validation and test batch, and the test
+   pass's latents and reconstructions within 2e-5 and 1e-4 of the CPU's
+   ``main_test`` on the same run.  From one init with dropout 0, 10 steps at
+   B=32 on the card, again on the card and on the CPU: losses within rtol
+   5e-4, atol 5e-5 of the CPU's, and within 1e-5 relative of each other.
+   With both TF32 flags on, one step's gradients on the card within 1e-4
+   of each leaf's largest on the CPU, and the same backward in TF32 must
+   miss that.  Prints ms per train step (p50 from CUDA events, outside the
+   profiled steps), beats/s, the host's time to issue a step, ms per
+   validation, the test pass's wall ms and latents/s, where 20 steps'
+   device time goes by group, with the idle share and the optimizer's host
+   time, and Adam's host time beside ``torch.optim.Adam(fused=True)``'s,
+   whose 10 steps are held against the CPU's.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -179,7 +198,7 @@ def phase_encoder(torch, dev):
     H1, H2 = 128, 64
     phases = T_BEAT + 2  # the kernel's skewed time loop: one cluster barrier per phase
     result = {}
-    for B, latent in ((64, 10), (64, 2), (64, 20), (1, 10), (256, 10)):
+    for B, latent in ((64, 10), (64, 2), (64, 20), (1, 10), (128, 10), (256, 10)):
         model = LSTMAutoencoder(latent, generator=torch.Generator().manual_seed(100 + latent), device=dev)
         x = torch.from_numpy(beats[64 if B <= 64 else 256][:B, :, None].copy()).to(dev)
         params = model.jax_tree()
@@ -226,8 +245,8 @@ def phase_encoder(torch, dev):
                       rows_per_cluster=plan.rows_per_cluster, phases=phases, us_per_phase=us_per_phase)
         if B == 64:  # the serving bucket: the kernels line's numbers
             result = dict(max_abs_err=err, cluster=CLUSTER, **timing)
-        else:
-            result["at_B256"] = dict(max_abs_err=err, **timing)
+        else:  # the trainer's validation and test batch, and the 200-beat request's bucket
+            result[f"at_B{B}"] = dict(max_abs_err=err, **timing)
     return result
 
 
@@ -709,6 +728,306 @@ def phase_determinism(torch, dev):
     check(err <= 5e-3, f"card and CPU margins differ by {err}")
 
 
+# phase 8: the default model at full width, its data cut to 16,384 beats
+TRAIN_BEATS, TRAIN_CASES = 16384, 128
+TRAIN_ARGS = ["--epochs", "2", "--validation_interval", "25", "--split_size_val", "0.05", "--split_size_test", "0.05",
+              "--plotting", ""]
+# calls of train_step profiled, 20 inside the third chunk and 20 inside the fourth (no validation between):
+# the first window traces CPU ops and kernels (the groups), the second kernels alone (the idle share)
+PROFILE_STEPS = (28, 48)
+IDLE_STEPS = (53, 73)
+# a train step's gradients on the card against the CPU's, each leaf's largest difference over its largest |g|:
+# a backward in full float32 holds it, one in TF32 (cuDNN's RNN backward outside cudnn_fp32) misses it
+GRAD_RTOL = 1e-4
+
+
+def write_beat_dir(d: str, n: int, cases: int, seed: int) -> None:
+    """np_waves.npy, np_features.npy (zeros) and np_info.npy: n synthetic
+    beats, n / cases a case id."""
+    from ae_waveforms_tpu_torch.core.schema import ArraySet, N_FEATURES, save_arrays
+
+    info = np.stack([np.repeat(np.arange(cases) + 1000, n // cases), np.arange(n)], 1).astype(np.float64)
+    save_arrays(ArraySet(synthetic_beats(np.random.default_rng(seed), n), np.zeros((n, N_FEATURES), np.float32),
+                         info), d)
+
+
+def train_breakdown(torch, prof, idle_prof, steps: int, idle_wall_ms: float, traced_host_ms: float) -> None:
+    """Device ms per train step by group, each kernel put under the first
+    of its CPU op's ancestors that names a group (``prof`` traced CPU ops
+    and kernels), and the optimizer's host ms per step beside the step's
+    (``traced_host_ms``, in the same window); the idle share from
+    ``idle_prof``, which traced kernels alone over ``steps`` other steps of
+    ``idle_wall_ms``, as serve_breakdown does (tracing CPU ops slows the
+    host)."""
+    groups = {"cuDNN LSTM backward": "_cudnn_rnn_backward", "cuDNN LSTM forward": "_cudnn_rnn",
+              "optimizer": "Optimizer.step", "gather and loss": "gather and loss"}
+    per = dict.fromkeys([*groups, "other"], 0.0)
+    for e in prof.events():
+        us = sum(k.duration for k in getattr(e, "kernels", []))
+        name, a = None, e
+        while us and name is None and a is not None:
+            name = next((g for g, key in groups.items() if key in a.name), None)
+            a = a.cpu_parent
+        if us:
+            per[name or "other"] += us / steps / 1e3
+    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+               for e in idle_prof.key_averages()) / steps / 1e3
+    if sum(per.values()) == 0 or busy == 0:
+        print("[train] breakdown not measured: torch.profiler linked no kernel to an op or recorded none")
+        return
+    opt_host = sum(e.cpu_time_total for e in prof.events() if e.name.startswith("Optimizer.step")) / steps / 1e3
+    print(f"[train] {steps} steps profiled, device ms per step: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+          + f" (sum {sum(per.values()):.4f}); host ms per step with CPU ops traced: the optimizer's step "
+          f"{opt_host:.4f} of {traced_host_ms:.4f}; {steps} more with kernels alone traced: device busy {busy:.4f} "
+          f"of {idle_wall_ms / steps:.4f} ms wall per step, idle share {1 - busy * steps / idle_wall_ms:.3f}")
+
+
+def ten_steps(torch, work: str, init, device: str, make_optimizer=None):
+    """The per-step losses and the validation losses of 10 steps at B=32,
+    dropout 0, from ``init``, validating after steps 0 and 9, on a data dir
+    of its own (so each run draws the same split and batch order); with
+    the trainer's ``make_optimizer`` replaced when one is given."""
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.train import loop
+
+    data = os.path.join(work, "data")
+    write_beat_dir(data, 1024, 32, seed=12)
+    losses, orig, orig_make = [], loop.train_step, loop.make_optimizer
+
+    def kept_step(*a, **k):
+        losses.append(orig(*a, **k))
+        return losses[-1]
+
+    loop.train_step, loop.make_optimizer = kept_step, make_optimizer or orig_make
+    try:
+        cfg = TrainConfig(dataset_dir=data, results_dir=os.path.join(work, "results"), batch_size=32,
+                          validation_interval=9, dropout=0.0, split_size_val=0.1, split_size_test=0.1, plotting=False)
+        run = loop.main_train(cfg, max_steps=10, device=device, init_params=init)
+    finally:
+        loop.train_step, loop.make_optimizer = orig, orig_make
+    with open(os.path.join(run, "training_log_validation.csv")) as f:
+        val = [float(row.split(",")[4]) for row in f if row.strip()]
+    return np.array([float(v) for v in torch.stack(losses).cpu()] + val, np.float64)
+
+
+def step_gradients(torch, device: str, x, fp32_backward: bool = True):
+    """Each parameter's gradient (float64, on the CPU) after one train step
+    of the default model from seed 5's init on the batch ``x``, dropout 0.
+    With ``fp32_backward`` False the same loss's backward runs outside
+    ``cudnn_fp32``, under the process's TF32 flags: the control that shows
+    the check can see a backward in TF32."""
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
+
+    model = LSTMAutoencoder(generator=torch.Generator().manual_seed(5), device=device).train()
+    x = x.to(device)
+    idx, mask = torch.arange(len(x), device=device), torch.ones(len(x), dtype=torch.bool, device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    if fp32_backward:  # the trainer's own step, at learning rate 0
+        train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), x, idx, mask, 0.0, generator, 0.0, "mse")
+    else:
+        batch_loss(model, x, idx, mask, generator, 0.0, "mse").backward()
+    return {name: p.grad.double().cpu() for name, p in model.named_parameters()}
+
+
+def grad_err(got, ref) -> float:
+    """The largest over leaves of max |got - ref| / max |ref|."""
+    return max(float((got[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
+
+
+def phase_train_gradients(torch) -> None:
+    """With both TF32 flags on, one step's gradients at B=32 on the card
+    against the CPU's: the trainer's step within GRAD_RTOL of each leaf's
+    largest, the control with its backward in TF32 outside it."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal((32, T_BEAT, 1)).astype(np.float32))
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        ref = step_gradients(torch, "cpu", x)
+        card, control = (grad_err(step_gradients(torch, "cuda:0", x, fp32), ref) for fp32 in (True, False))
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    print(f"[train] one step's gradients at B=32, both TF32 flags on, against the CPU's (largest over leaves of "
+          f"max |diff| / max |g|): the trainer's step {card:.3e}, its backward in TF32 {control:.3e} (tolerance "
+          f"{GRAD_RTOL:g}, which the second must miss)")
+    check(card <= GRAD_RTOL, f"the card's gradients part from the CPU's by {card}")
+    check(control > GRAD_RTOL, f"a backward in TF32 gave {control}: the gradient check cannot see TF32")
+
+
+def adam_host_ms(torch, dev, reps: int = 50):
+    """Host ms per ``step()`` of the port's Adam (optax's order) and of
+    ``torch.optim.Adam(fused=True)`` on the default model's 26 tensors: the
+    median of 5 bursts of ``reps`` steps after a warm one, the card
+    synchronised between bursts."""
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
+
+    params = list(LSTMAutoencoder(device=dev).parameters())
+    for p in params:
+        p.grad = torch.randn_like(p) * 1e-3
+    out = {}
+    for name, opt in (("port", make_optimizer("adam", params, 1e-3)),
+                      ("fused", torch.optim.Adam(params, 1e-3, fused=True))):
+        bursts = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                opt.step()
+            bursts.append((time.perf_counter() - t0) / reps * 1e3)
+        out[name] = float(np.median(bursts[1:]))
+    return out
+
+
+def phase_train(torch, dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from ae_waveforms_tpu_torch.bridge import lstm_ae_params_to_numpy
+    from ae_waveforms_tpu_torch.cli import main_ae
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+    from ae_waveforms_tpu_torch.train import loop
+    from ae_waveforms_tpu_torch.train.checkpoint import load_state
+    from ae_waveforms_tpu_torch.train.eval import main_test
+
+    cfg = TrainConfig()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+        data, results = os.path.join(work, "data"), os.path.join(work, "results")
+        write_beat_dir(data, TRAIN_BEATS, TRAIN_CASES, seed=10)
+        args = ["--dataset_dir", data, "--results_dir", results, *TRAIN_ARGS]
+
+        steps, host_ms, validations, prof = [], [], [], {}
+        orig_step, orig_validate = loop.train_step, loop.validate
+
+        def timed_step(*a, **k):
+            for window, activities in ((PROFILE_STEPS, [ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                                       (IDLE_STEPS, [ProfilerActivity.CUDA])):
+                if len(steps) in window:
+                    torch.cuda.synchronize()
+                    if len(steps) == window[0]:
+                        prof[window] = profile(activities=activities)
+                        prof[window].start()
+                        prof[window, "t0"] = time.perf_counter()
+                    else:
+                        prof[window, "ms"] = (time.perf_counter() - prof[window, "t0"]) * 1e3
+                        prof[window].stop()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            t_host = time.perf_counter()
+            loss = orig_step(*a, **k)
+            host_ms.append((time.perf_counter() - t_host) * 1e3)
+            end.record()
+            steps.append((start, end, loss, a[4]))
+            return loss
+
+        def timed_validate(model, val_x, idx, mask, kind):
+            torch.cuda.synchronize()
+            before, t0 = encode_fused.launches, time.perf_counter()
+            out = orig_validate(model, val_x, idx, mask, kind)
+            validations.append(((time.perf_counter() - t0) * 1e3, encode_fused.launches - before, len(idx)))
+            return out
+
+        loop.train_step, loop.validate = timed_step, timed_validate
+        encode_fused.launches = 0
+        try:
+            t0 = time.perf_counter()
+            run_dir = main_ae.autoencoder(["-m", "train", *args])
+            train_s = time.perf_counter() - t0
+        finally:
+            loop.train_step, loop.validate = orig_step, orig_validate
+        launches = {"train": encode_fused.launches}
+
+        run = os.path.basename(run_dir)
+        encode_fused.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        main_ae.autoencoder(["-m", "test", "--trained_model", run, *args])
+        test_ms = (time.perf_counter() - t0) * 1e3
+        launches["test"] = encode_fused.launches
+        test_dir = os.path.join(results, "test_autoencoder", run)
+        card_z = np.load(os.path.join(test_dir, "np_latent_spaces.npy"))
+        card_pred = np.load(os.path.join(test_dir, "np_waves_test_pred.npy"))
+
+        with open(os.path.join(run_dir, "training_log_validation.csv")) as f:
+            val_rows = [[float(v) for v in row.split(",")] for row in f if row.strip()]
+        init = load_state(os.path.join(run_dir, "model_init.npz"), lstm_ae_params_to_numpy(LSTMAutoencoder(device="cpu")))
+        final = load_state(os.path.join(run_dir, "model_autoencoder.npz"), init)
+        n_test = len(card_z)
+        cpu_out = main_test(cfg.replace(dataset_dir=data, results_dir=results, trained_model=run, plotting=False),
+                            device="cpu")
+
+        # the same 10 steps from one init, twice on the card and once on the CPU
+        init10 = lstm_ae_params_to_numpy(LSTMAutoencoder(generator=torch.Generator().manual_seed(11), device="cpu"))
+        card_a, card_b, cpu10 = (ten_steps(torch, os.path.join(work, name), init10, device)
+                                 for name, device in (("a", "cuda:0"), ("b", "cuda:0"), ("c", "cpu")))
+        # the trade of torch's fused Adam: its 10 steps on the card against the port's Adam on the CPU
+        fused10 = ten_steps(torch, os.path.join(work, "d"), init10, "cuda:0",
+                            lambda name, params, lr, *a, **k: torch.optim.Adam(params, lr, fused=True))
+    phase_train_gradients(torch)
+    adam_ms = adam_host_ms(torch, dev)
+
+    torch.cuda.synchronize()
+    step_ms = np.array([s.elapsed_time(e) for s, e, _, _ in steps])
+    losses = torch.stack([loss for _, _, loss, _ in steps]).cpu().numpy()
+    beats = torch.stack([mask for _, _, _, mask in steps]).sum(1).cpu().numpy()
+    val_losses = np.array([r[4] for r in val_rows])
+    batch = cfg.batch_size
+    # the steps after the first 10, outside the profiled windows (tracing slows the host)
+    timed = np.array([i >= 10 and not any(w[0] <= i < w[1] for w in (PROFILE_STEPS, IDLE_STEPS))
+                      for i in range(len(steps))])
+    p50 = float(np.median(step_ms[timed]))
+    val_ms = np.array([v[0] for v in validations])
+    print(f"[train] {len(steps)} steps of B={batch} in {train_s:.2f} s wall (the CLI, data load and checkpoints "
+          f"included); over the {int(timed.sum())} steps after the first 10 outside the profiled windows (CUDA "
+          f"events): ms per train step p50 {p50:.4f}, min {step_ms[timed].min():.4f}, max "
+          f"{step_ms[timed].max():.4f}; {beats[timed].sum() / step_ms[timed].sum() * 1e3:.1f} beats/s (their "
+          f"{int(beats[timed].sum())} beats over their summed time; {batch / p50 * 1e3:.1f} at the p50; p50 with "
+          f"the profiled steps in {float(np.median(step_ms[10:])):.4f}); host ms "
+          f"to issue a step min {np.min(np.array(host_ms)[timed]):.4f}, p50 {np.median(np.array(host_ms)[timed]):.4f} "
+          f"(the host waits where the card's queue is full)")
+    print(f"[train] {len(validations)} validations of {validations[0][2]} batches: ms per validation p50 "
+          f"{float(np.median(val_ms)):.3f} (wall, synchronised); validation loss {val_losses[0]:.6f} -> "
+          f"{val_losses[-1]:.6f}")
+    print(f"[test] {n_test} beats in {-(-n_test // batch)} batches: {test_ms:.3f} ms wall (the CLI, data load "
+          f"included), {n_test / test_ms * 1e3:.1f} latents/s")
+    if (IDLE_STEPS, "ms") in prof:
+        train_breakdown(torch, prof[PROFILE_STEPS], prof[IDLE_STEPS], IDLE_STEPS[1] - IDLE_STEPS[0],
+                        prof[IDLE_STEPS, "ms"], float(np.mean(host_ms[PROFILE_STEPS[0]:PROFILE_STEPS[1]])))
+
+    check(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(val_losses))), "a training loss is not finite")
+    check(val_losses[-1] < val_losses[0], f"the validation loss did not fall: {val_losses[0]} -> {val_losses[-1]}")
+    same = [f"{layer}.{k}" for layer in init for k in init[layer] if np.array_equal(init[layer][k], final[layer][k])]
+    check(not same, f"weights that did not move from their init: {same}")
+    expected = {"train": sum(v[2] for v in validations), "test": -(-n_test // batch)}
+    print(f"[train] lstm_encoder launches: {launches} (one per validation batch and test batch: {expected})")
+    check(len(validations) == len(val_rows) and launches == expected, f"lstm_encoder launches {launches}, "
+          f"expected {expected}")
+    z_err = float(np.abs(card_z - cpu_out[3]).max())
+    pred_err = float(np.abs(card_pred - cpu_out[2][0]).max())
+    print(f"[test] card against the CPU main_test on the same run: latents {z_err:.3e} (tolerance 2e-5), "
+          f"reconstruction {pred_err:.3e} (tolerance 1e-4)")
+    check(card_z.shape == (n_test, cfg.latent_size) and card_pred.shape == (n_test, T_BEAT), "test output shapes")
+    check(z_err <= LATENT_ATOL and pred_err <= 1e-4, f"card and CPU test passes disagree: {z_err}, {pred_err}")
+    repeat = float(np.max(np.abs(card_a - card_b) / np.abs(card_b)))
+    cpu_err = np.abs(card_a - cpu10)
+    print(f"[train] 10 steps at B=32 from one init, dropout 0 (10 train losses, 2 validation losses): two card runs "
+          f"differ by {repeat:.3e} relative at most (bit-identical: {bool(np.array_equal(card_a, card_b))}); card "
+          f"against CPU max_abs_err {cpu_err.max():.3e}, max relative {float(np.max(cpu_err / np.abs(cpu10))):.3e} "
+          f"(tolerance rtol 5e-4, atol 5e-5)")
+    fused_err = float(np.max(np.abs(fused10 - cpu10) / np.abs(cpu10)))
+    print(f"[train] Adam, host ms per step on the default model: the port's (optax's order) {adam_ms['port']:.4f}, "
+          f"torch.optim.Adam(fused=True) {adam_ms['fused']:.4f}; the fused one's 10 steps on the card against the "
+          f"port's on the CPU: max relative {fused_err:.3e}")
+    check(repeat < 1e-5, f"two card runs of the same 10 steps differ by {repeat} relative")
+    check(bool(np.all(cpu_err <= 5e-5 + 5e-4 * np.abs(cpu10))), "card and CPU training trajectories differ")
+    return launches["train"] + launches["test"]
+
+
 def main() -> int:
     import torch
 
@@ -742,10 +1061,12 @@ def main() -> int:
     hist = timed("5 gbt_hist", phase_hist, torch, dev)
     classify_launches = timed("6 classify", phase_classify, torch)
     timed("7 determinism", phase_determinism, torch, dev)
+    train_launches = timed("8 AE train and test", phase_train, torch, dev)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
-             replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109", launches=serve_launches["lstm_encoder"], **encoder),
+             replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109",
+             launches=serve_launches["lstm_encoder"] + train_launches, **encoder),
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
              replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
              launches=serve_launches["gbt_route"] + classify_launches["gbt_route"], **route),

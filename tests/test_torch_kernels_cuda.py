@@ -26,6 +26,8 @@ from ae_waveforms_tpu_torch.ops.gbt_route import (
     route_levels, route_levels_reference, route_rows, route_rows_reference, route_spans,
 )
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
+from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
+from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
 
 pytestmark = pytest.mark.cuda
 
@@ -38,7 +40,7 @@ def _card():
 
 @pytest.mark.parametrize("B,T,hidden,latent", [(64, 320, (128, 64), 10), (1, 320, (128, 64), 2),
                                                (5, 40, (16, 8), 20), (256, 320, (128, 64), 10),
-                                               (37, 320, (128, 64), 10)])
+                                               (37, 320, (128, 64), 10), (128, 320, (128, 64), 10)])
 def test_encoder_kernel_matches_plain(B, T, hidden, latent):
     dev = _card()
     model = LSTMAutoencoder(latent, hidden, generator=torch.Generator().manual_seed(B), device=dev)
@@ -52,13 +54,109 @@ def test_encoder_kernel_matches_plain(B, T, hidden, latent):
     assert (got - ref).abs().max().item() <= 2e-5
 
 
+def _beats(B, dev, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal((B, 320, 1)).astype(np.float32)).to(dev)
+
+
+def test_train_step_gives_every_parameter_a_gradient():
+    """One training step of the default model on the card, dropout 0.2: the
+    encoder runs as cuDNN LSTMs in train mode, so every parameter, the
+    encoder's included, gets a finite gradient that is not all zero."""
+    dev = _card()
+    model = LSTMAutoencoder(device=dev).train()
+    optimizer = make_optimizer("adam", model.parameters(), 1e-3)
+    x = _beats(16, dev)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    idx = torch.arange(16, device=dev)
+    loss = train_step(model, optimizer, x, idx, torch.ones(16, dtype=torch.bool, device=dev), 1e-3, generator, 0.2,
+                      "mse")
+    assert torch.isfinite(loss)
+    for name, p in model.named_parameters():
+        assert p.grad is not None, name
+        assert bool(torch.isfinite(p.grad).all()) and bool((p.grad != 0).any()), name
+
+
+def _step_gradients(device, x, fp32_backward=True):
+    """Each parameter's gradient after one train step of the default model
+    from seed 5's init, dropout 0; with ``fp32_backward`` False the same
+    loss's backward runs outside ``cudnn_fp32``, under the process's flags."""
+    model = LSTMAutoencoder(generator=torch.Generator().manual_seed(5), device=device).train()
+    x = x.to(device)
+    idx, mask = torch.arange(len(x), device=device), torch.ones(len(x), dtype=torch.bool, device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    if fp32_backward:
+        train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), x, idx, mask, 0.0, generator, 0.0, "mse")
+    else:
+        batch_loss(model, x, idx, mask, generator, 0.0, "mse").backward()
+    return {name: p.grad.double().cpu() for name, p in model.named_parameters()}
+
+
+def test_train_step_gradients_keep_full_float32_under_tf32_flags():
+    """With both TF32 flags on, one train step's gradients on the card
+    agree with the CPU's within 1e-4 of each leaf's largest |g|, and the
+    step leaves both flags on: its backward runs in full float32.  The same
+    loss with its backward outside ``cudnn_fp32``, so in TF32, must miss
+    that tolerance: the check can see the fault it guards against."""
+    dev = _card()
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    x = _beats(32, "cpu", seed=32)
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        ref = _step_gradients("cpu", x)
+        card, tf32 = (_step_gradients(dev, x, fp32) for fp32 in (True, False))
+        assert [f.allow_tf32 for f in flags] == [True, True]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+    err = {k: float((card[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref}
+    tf32_err = max(float((tf32[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
+    print(f"one step's gradients against the CPU's: the trainer's step {max(err.values()):.3e}, its backward in "
+          f"TF32 {tf32_err:.3e} (tolerance 1e-4)")
+    assert all(v <= 1e-4 for v in err.values()), err
+    assert tf32_err > 1e-4
+
+
+def test_encode_fused_refuses_autograd():
+    """The kernel has no backward: under grad it raises on the card rather
+    than hand back a latent that gradients cannot reach through."""
+    dev = _card()
+    model = LSTMAutoencoder(device=dev).eval()
+    x = _beats(4, dev)
+    before = encode_fused.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        encode_fused(model.jax_tree(), x)
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(x)
+    assert encode_fused.launches == before
+    with torch.no_grad():
+        assert model.encode(x).shape == (4, 10)
+    assert encode_fused.launches == before + 1
+
+
+def test_train_mode_forward_matches_eval_mode():
+    """With dropout 0, the train-mode forward (cuDNN encoder) and the
+    eval-mode forward (the fused encoder kernel) agree within 1e-4."""
+    dev = _card()
+    model = LSTMAutoencoder(generator=torch.Generator().manual_seed(3), device=dev)
+    x = _beats(64, dev, seed=3)
+    with torch.no_grad():
+        train_out = model.train()(x)
+        train_z = model.encode(x)
+        eval_out = model.eval()(x)
+        eval_z = model.encode(x)
+    assert (train_z - eval_z).abs().max().item() <= 2e-5
+    assert (train_out - eval_out).abs().max().item() <= 1e-4
+
+
 def test_decoder_keeps_full_float32_under_tf32_flags():
-    """With both TF32 flags on, the model on the card agrees with the CPU
-    within the reconstruction tolerance, and leaves both flags on.  The
-    same decoder run without the model's own switch, so in TF32, must miss
-    that tolerance by far on the second model (its decoder's weights
-    tripled, as a trained model's outgrow their init): the check can see
-    the fault it guards against."""
+    """With both TF32 flags on, the model on the card in eval mode (its
+    encoder on the kernel) agrees with the CPU within the reconstruction
+    tolerance, and leaves both flags on.  The same decoder run without the
+    model's own switch, so in TF32, must miss that tolerance by far on the
+    second model (its decoder's weights tripled, as a trained model's
+    outgrow their init): the check can see the fault it guards against."""
     dev = _card()
     flags = torch.backends.cuda.matmul, torch.backends.cudnn
     saved = [f.allow_tf32 for f in flags]
@@ -67,7 +165,7 @@ def test_decoder_keeps_full_float32_under_tf32_flags():
         for f in flags:
             f.allow_tf32 = True
         for scale in (1.0, 3.0):
-            gpu_model, cpu_model = LSTMAutoencoder(device=dev), LSTMAutoencoder(device="cpu")
+            gpu_model, cpu_model = LSTMAutoencoder(device=dev).eval(), LSTMAutoencoder(device="cpu").eval()
             with torch.no_grad():
                 for model in (gpu_model, cpu_model):
                     for layer in (model.dec1, model.dec2, model.dec3):
