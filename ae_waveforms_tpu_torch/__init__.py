@@ -5,17 +5,21 @@ module's counterpart is found under the same path:
 
 - ``serve``        batched scoring service (``Scorer``): reconstruction,
                    latents, RMSE, PRD and an optional GBT disorder head.
-- ``models``       the LSTM autoencoder as an ``nn.Module`` (its encoder on
-                   the fused kernel in eval mode, on cuDNN in train mode)
-                   and its registry.
+- ``models``       the LSTM autoencoder (its encoder on the fused kernel in
+                   eval mode, on cuDNN in train mode) and the conv
+                   autoencoder as ``nn.Module``s, their layers and registry.
 - ``ops``          hand-written CUDA kernels for Hopper (``csrc/*.cu``), each
                    beside its plain PyTorch version: the fused LSTM encoder,
                    GBT histograms and GBT row routing.
 - ``classify``     the GBT classifier (fit and predict), LHS sampling and
                    the evaluation harness (grid search, size x seed sweep,
                    PPV analysis).
-- ``cli``          the AE CLI (``main_ae``: train, test) and the classify
-                   CLI (``latent``, ``features``, ``ppv``).
+- ``traditional``  beats rebuilt from fiducials by Gaussian interpolation,
+                   batched over beats and sigma maps, and the sigma search.
+- ``analysis``     the traditional-vs-AE reconstruction comparison and the
+                   plots (matplotlib, where installed).
+- ``cli``          the AE CLI (``main_ae``: train, test), the classify CLI
+                   (``latent``, ``features``, ``ppv``) and the analysis CLI.
 - ``core``         the training config and the array schema.
 - ``train``        AE training (``main_train``: the patient split, losses,
                    schedules, optimizers, logs) and the test pass with
@@ -58,8 +62,9 @@ def resolve_device(device=None) -> torch.device:
 
 @contextlib.contextmanager
 def cudnn_fp32():
-    """cuDNN (the decoder's LSTMs) in full float32 inside, whatever the
-    process's TF32 flags; every cuDNN flag as it was after.
+    """cuDNN (the LSTM decoder's RNNs, the conv autoencoder's convolutions)
+    in full float32 inside, whatever the process's TF32 flags; every cuDNN
+    flag as it was after.
 
     cuDNN's TF32 default keeps about three decimal digits, which would break
     the 1e-4 reconstruction tolerance the port is held to against the JAX

@@ -1,8 +1,11 @@
 """Carry weights between the JAX package and the port, as numpy arrays.
 
-The LSTM autoencoder's JAX parameter dict (``enc1``..``dec3`` with
-``w_ih``, ``w_hh``, ``b_ih``, ``b_hh``; ``out`` with ``w``, ``b``) already
-uses torch's layouts, so the mapping is by name and bit-exact both ways.
+Both autoencoders' JAX parameter dicts already use torch's layouts, so the
+mapping is by name and bit-exact both ways: the LSTM autoencoder's
+``enc1``..``dec3`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` and ``out``
+with ``w``, ``b``; the conv autoencoder's ``e1``..``e4``, ``e_lat``,
+``d_lat``, ``d1``..``d4``, each with ``w`` ((out, in, K) for a conv, (in,
+out, K) for a transposed conv) and ``b``.
 """
 
 from __future__ import annotations
@@ -13,9 +16,11 @@ import numpy as np
 
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.classify.gbt import GBTClassifier, GBTEnsemble
+from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 
-__all__ = ["lstm_ae_params_from_numpy", "lstm_ae_params_to_numpy", "gbt_from_numpy"]
+__all__ = ["lstm_ae_params_from_numpy", "lstm_ae_params_to_numpy", "conv_ae_params_from_numpy",
+           "conv_ae_params_to_numpy", "gbt_from_numpy"]
 
 
 def lstm_ae_params_from_numpy(tree: Dict, device=None) -> LSTMAutoencoder:
@@ -31,12 +36,30 @@ def lstm_ae_params_from_numpy(tree: Dict, device=None) -> LSTMAutoencoder:
     return model.eval()
 
 
-def lstm_ae_params_to_numpy(model: LSTMAutoencoder) -> Dict[str, Dict[str, np.ndarray]]:
-    """The module's weights as the JAX parameter dict of numpy arrays."""
+def _params_to_numpy(model) -> Dict[str, Dict[str, np.ndarray]]:
     return {
         name: {k: p.detach().cpu().numpy().copy() for k, p in params.items()}
         for name, params in model.jax_tree().items()
     }
+
+
+def lstm_ae_params_to_numpy(model: LSTMAutoencoder) -> Dict[str, Dict[str, np.ndarray]]:
+    """The module's weights as the JAX parameter dict of numpy arrays."""
+    return _params_to_numpy(model)
+
+
+def conv_ae_params_from_numpy(tree: Dict, device=None) -> LeNet5AutoencoderAvgPool:
+    """A ``LeNet5AutoencoderAvgPool`` holding the JAX parameter dict's
+    weights, on ``device`` (the first CUDA device unless named), in eval
+    mode; the latent width is read from ``e_lat``'s weight."""
+    model = LeNet5AutoencoderAvgPool(np.shape(tree["e_lat"]["w"])[0], device=resolve_device(device))
+    model.load_jax_tree(tree)
+    return model.eval()
+
+
+def conv_ae_params_to_numpy(model: LeNet5AutoencoderAvgPool) -> Dict[str, Dict[str, np.ndarray]]:
+    """The module's weights as the JAX parameter dict of numpy arrays."""
+    return _params_to_numpy(model)
 
 
 def gbt_from_numpy(feat, thresh, is_split, leaf, lr, edges, params: Dict, device=None) -> GBTClassifier:

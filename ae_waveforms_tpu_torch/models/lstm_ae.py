@@ -24,12 +24,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
-from ae_waveforms_tpu_torch.models.layers import dropout, linear_init, lstm_init
+from ae_waveforms_tpu_torch.models.layers import copy_tree_, dropout, linear_init, lstm_init
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
 __all__ = ["LSTMAutoencoder"]
@@ -75,16 +74,9 @@ class LSTMAutoencoder(nn.Module):
         tree["out"] = {"w": self.out.weight, "b": self.out.bias}
         return tree
 
-    @torch.no_grad()
     def load_jax_tree(self, tree) -> None:
         """Copy a JAX-named parameter tree (arrays or tensors) in."""
-        for name, params in self.jax_tree().items():
-            for k, p in params.items():
-                v = tree[name][k]
-                v = v if torch.is_tensor(v) else torch.tensor(np.asarray(v))
-                if tuple(v.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}.{k}: expected shape {tuple(p.shape)}, got {tuple(v.shape)}")
-                p.copy_(v)
+        copy_tree_(self.jax_tree(), tree)
 
     def encode(self, x: torch.Tensor, rate: float = 0.0, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x (B, T, 1) -> latent (B, latent): through the fused kernel in

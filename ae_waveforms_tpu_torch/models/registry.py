@@ -1,8 +1,8 @@
 """Model registry (reference: model_classes.py:113-116 dict of classes).
 
 Each entry gives the module class and the input layout flag the data
-pipeline needs: recurrent models take (B, 320, 1).  The conv autoencoder
-joins with its port.
+pipeline needs: conv models take (B, 1, 320) ("channel-first"), recurrent
+models take (B, 320, 1).
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from typing import Callable, Dict
 
 from torch import nn
 
+from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 
 __all__ = ["MODEL_REGISTRY", "ModelDef", "model_def"]
@@ -26,6 +27,8 @@ class ModelDef:
 
 MODEL_REGISTRY: Dict[str, ModelDef] = {
     "LSTMAutoencoder": ModelDef(name="LSTMAutoencoder", build=LSTMAutoencoder, channel_first=False),
+    "LeNet5AutoencoderAvgPool": ModelDef(name="LeNet5AutoencoderAvgPool", build=LeNet5AutoencoderAvgPool,
+                                         channel_first=True),
 }
 
 

@@ -9,8 +9,10 @@ only moves the input batch in and the scores out.
     scorer.attach_gbt(gbt_classifier)                          # + head
     out = scorer.score(waves)                                  # (B, 320)
 
-The latent is computed once, by the fused encoder kernel, and decoded from
-there; the GBT head routes all its trees at once through the routing kernel.
+The latent is computed once (for the LSTM autoencoder by the fused encoder
+kernel) and decoded from there; latents come out as (B, d) for either
+model.  The GBT head routes all its trees at once through the routing
+kernel.
 """
 
 from __future__ import annotations
@@ -77,7 +79,9 @@ class Scorer:
             waves = np.concatenate([waves, np.zeros((target - n, waves.shape[1]), np.float32)])
         x = torch.from_numpy(np.ascontiguousarray(layout_waves(waves, self.channel_first))).to(self.device)
         z = self.model.encode(x)
-        pred = self.model.decode(z, x.shape[1])
+        pred = self.model.decode(z, waves.shape[1])
+        if z.ndim == 3:  # the conv autoencoder's (B, d, 1)
+            z = z[:, :, 0]
         flat_p = pred.reshape(pred.shape[0], -1)
         flat_x = x.reshape(x.shape[0], -1)
         rmse = torch.sqrt(torch.mean((flat_p - flat_x) ** 2, dim=1))

@@ -4,16 +4,18 @@ functions_ae/run_test.py:18-129).
 
 ``main_test`` loads the best (or final) checkpoint, runs the test split in
 padded batches of ``cfg.batch_size`` with the model in eval mode under
-``no_grad``, computes each batch's latent once, through the fused encoder
-kernel on the card, and decodes that latent.  It writes
+``no_grad``, computes each batch's latent once (the LSTM autoencoder's
+through the fused encoder kernel on the card) and decodes that latent.  It writes
 ``np_waves_test_pred.npy`` (n, 320) and ``np_latent_spaces.npy`` (n,
-latent) and prints the global loss, per-sample RMSE and PRD.  Plots come
-with the port of ``analysis/plots.py``.
+latent) and prints the global loss, per-sample RMSE and PRD; with
+``cfg.plotting`` it draws the RMSE distribution where matplotlib is
+installed, and logs a warning where it is not.
 """
 
 from __future__ import annotations
 
 import glob
+import importlib.util
 import logging
 import os
 from typing import Dict, Optional, Tuple
@@ -82,8 +84,9 @@ def main_test(
             "different seed, more cases, or a larger split_size_test"
         )
 
-    x_np = layout_waves(np.asarray(arrays.waves, np.float32)[te_mask], mdef.channel_first)
-    n = len(x_np)
+    waves = np.asarray(arrays.waves, np.float32)[te_mask]
+    n, beat_len = waves.shape
+    x_np = layout_waves(waves, mdef.channel_first)
     idx, _ = _batched_indices(n, cfg.batch_size, np.arange(n, dtype=np.int32))
     x_dev = torch.from_numpy(np.ascontiguousarray(x_np)).to(device)
     preds, zs = [], []
@@ -91,7 +94,7 @@ def main_test(
         for bidx in torch.from_numpy(idx).to(device):
             x = x_dev.index_select(0, bidx)
             z = model.encode(x)
-            preds.append(model.decode(z, x.shape[1]))
+            preds.append(model.decode(z, beat_len))
             zs.append(z)
     pred_flat = torch.cat(preds)[:n].reshape(n, -1).cpu().numpy()
     zs = torch.cat(zs)[:n].reshape(n, -1).cpu().numpy()
@@ -112,10 +115,12 @@ def main_test(
     print(f"Sample wise average test PRD loss: {prd_avg:.6f}")
 
     if cfg.plotting:
-        logging.getLogger("test").warning(
-            "plotting: the RMSE plot needs the port of analysis/plots.py (ROADMAP.md, queue 1, item 10); "
-            "no plot written"
-        )
+        if importlib.util.find_spec("matplotlib") is None:
+            logging.getLogger("test").warning("plotting: matplotlib is not installed; no RMSE plot written")
+        else:
+            from ae_waveforms_tpu_torch.analysis.plots import plot_rmse_distribution
+
+            plot_rmse_distribution(rmse_avg, rmse_per, results_dir)
 
     return (
         results_file,

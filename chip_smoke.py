@@ -74,7 +74,27 @@ Phases, each of which fails the run:
    validation, the test pass's wall ms and latents/s, where 20 steps'
    device time goes by group, with the idle share and the optimizer's host
    time, and Adam's host time beside ``torch.optim.Adam(fused=True)``'s,
-   whose 10 steps are held against the CPU's.
+   whose 10 steps are held against the CPU's.  The beats' np_features hold
+   fiducials at the generator's wave centres (about 5% of P's dropped),
+   which training never reads.
+9. the conv autoencoder and the reconstruction study, on phase 8's data
+   and LSTM run: ``cli.main_ae -m train --model_class
+   LeNet5AutoencoderAvgPool`` (1->16->32->64->128->10, the same cut and
+   defaults as phase 8) with the same readings and checks (its device
+   split by conv forward, conv backward, upsample and its backward,
+   dropout, optimizer, gather and loss); ``-m test`` against the CPU's
+   ``main_test``; 10 steps twice on the card and once on the CPU; one
+   step's gradients with both TF32 flags on against the CPU's, and a step
+   whose forward and backward run outside ``cudnn_fp32`` must miss;
+   ``Scorer.from_run`` of the conv
+   run with phase 4's GBT head against the CPU ``Scorer`` (latents (n, 10)
+   within 2e-5), the 64-beat p50; ``analysis.trad_vs_ae.compare`` with
+   the 2,000-candidate sigma sweep on the test split and both runs,
+   timed by part (sweep wall s, candidates/s, the final reconstruction,
+   each test pass), its table, the card's objective on 64 candidates
+   against the CPU's (rtol 1e-5 + atol 1e-7) and its final
+   reconstruction against the CPU's (5e-5); then ``cli.analysis --search
+   gp --search_calls 200`` with the LSTM run, timed.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -84,8 +104,11 @@ seeds.
 
 from __future__ import annotations
 
+import contextlib
+import glob
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -155,19 +178,53 @@ def bound(nbytes: float, flops: float):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def synthetic_beats(rng, n: int) -> np.ndarray:
+R_SAMPLE = 106  # the R peak's sample in a beat, a third of it, as the extractor cuts them
+WAVE_WIDTHS = (10, 3, 4, 3, 20)  # the P, Q, R, S and T bumps' widths in samples
+
+
+def synthetic_beats_and_centres(rng, n: int):
     """ECG-like median beats (P, Q, R, S, T bumps, R at a third of the
-    beat, as the extractor cuts them) with seeded jitter, amplitude, baseline
-    offset and noise."""
+    beat) with seeded jitter, amplitude, baseline offset and noise, and the
+    bumps' centres in samples (n, 5)."""
     t = np.arange(T_BEAT, dtype=np.float64)
     g = lambda c, w: np.exp(-0.5 * ((t[None, :] - c) / w) ** 2)  # noqa: E731
     a = rng.uniform(0.7, 1.3, size=(n, 5))
     j = rng.normal(0.0, 4.0, size=(n, 2))
-    waves = (0.15 * a[:, :1] * g(60 + j[:, :1], 10) - 0.1 * a[:, 1:2] * g(98, 3)
-             + a[:, 2:3] * g(106, 4) - 0.2 * a[:, 3:4] * g(114, 3)
-             + 0.3 * a[:, 4:5] * g(210 + j[:, 1:], 20))
+    wp, wq, wr, ws, wt = WAVE_WIDTHS
+    waves = (0.15 * a[:, :1] * g(60 + j[:, :1], wp) - 0.1 * a[:, 1:2] * g(98, wq)
+             + a[:, 2:3] * g(R_SAMPLE, wr) - 0.2 * a[:, 3:4] * g(114, ws)
+             + 0.3 * a[:, 4:5] * g(210 + j[:, 1:], wt))
     waves = waves * rng.uniform(0.3, 3.0, size=(n, 1)) + rng.normal(0.0, 0.5, size=(n, 1))
-    return (waves + 0.02 * rng.standard_normal((n, T_BEAT))).astype(np.float32)
+    waves = (waves + 0.02 * rng.standard_normal((n, T_BEAT))).astype(np.float32)
+    fixed = np.ones((n, 1))
+    centres = np.concatenate([60 + j[:, :1], 98 * fixed, R_SAMPLE * fixed, 114 * fixed, 210 + j[:, 1:]], 1)
+    return waves, centres
+
+
+def synthetic_beats(rng, n: int) -> np.ndarray:
+    return synthetic_beats_and_centres(rng, n)[0]
+
+
+def beat_fiducials(waves: np.ndarray, centres: np.ndarray, rng) -> np.ndarray:
+    """(n, 35) feature rows: the 10 fiducials of ``core/schema.py``'s
+    order (P peak, onset, offset; Q; R onset, offset; S; T peak, onset,
+    offset) at the generator's centres, onsets and offsets two widths out
+    (the R wave's 1.5), each as x in ms from R (500 Hz) and y the beat's
+    value there minus its value at R; about 5% of the P fiducials NaN, as a
+    delineator drops them; the morphology columns 0."""
+    wp, _, wr, _, wt = WAVE_WIDTHS
+    p, q, r, s, t = centres.T
+    at = np.stack([p, p - 2 * wp, p + 2 * wp, q, r - 1.5 * wr, r + 1.5 * wr, s, t, t - 2 * wt, t + 2 * wt], 1)
+    idx = np.clip(np.rint(at), 0, T_BEAT - 1).astype(np.int64)
+    rows = np.arange(len(waves))[:, None]
+    x = (idx - R_SAMPLE) * 1000.0 / 500
+    y = waves[rows, idx].astype(np.float64) - waves[:, R_SAMPLE:R_SAMPLE + 1]
+    dropped = rng.random((len(waves), 3)) < 0.05
+    x[:, :3][dropped] = np.nan
+    y[:, :3][dropped] = np.nan
+    features = np.zeros((len(waves), 35))
+    features[:, 0:20:2], features[:, 1:20:2] = x, y
+    return features
 
 
 def separated_edges(z: np.ndarray, n_bins: int, margin: float) -> np.ndarray:
@@ -742,47 +799,167 @@ GRAD_RTOL = 1e-4
 
 
 def write_beat_dir(d: str, n: int, cases: int, seed: int) -> None:
-    """np_waves.npy, np_features.npy (zeros) and np_info.npy: n synthetic
-    beats, n / cases a case id."""
-    from ae_waveforms_tpu_torch.core.schema import ArraySet, N_FEATURES, save_arrays
+    """np_waves.npy, np_features.npy (the beats' fiducials, from a generator
+    of their own, so the beats are those of ``synthetic_beats``) and
+    np_info.npy: n synthetic beats, n / cases a case id."""
+    from ae_waveforms_tpu_torch.core.schema import ArraySet, save_arrays
 
     info = np.stack([np.repeat(np.arange(cases) + 1000, n // cases), np.arange(n)], 1).astype(np.float64)
-    save_arrays(ArraySet(synthetic_beats(np.random.default_rng(seed), n), np.zeros((n, N_FEATURES), np.float32),
-                         info), d)
+    waves, centres = synthetic_beats_and_centres(np.random.default_rng(seed), n)
+    save_arrays(ArraySet(waves, beat_fiducials(waves, centres, np.random.default_rng(seed + 1)), info), d)
 
 
-def train_breakdown(torch, prof, idle_prof, steps: int, idle_wall_ms: float, traced_host_ms: float) -> None:
-    """Device ms per train step by group, each kernel put under the first
-    of its CPU op's ancestors that names a group (``prof`` traced CPU ops
-    and kernels), and the optimizer's host ms per step beside the step's
-    (``traced_host_ms``, in the same window); the idle share from
+# the groups of a train step's device time: a kernel goes to the first group whose key's parts all appear in the
+# name of its CPU op or, failing that, of the nearest ancestor that has one
+LSTM_GROUPS = {"cuDNN LSTM backward": ("_cudnn_rnn_backward",), "cuDNN LSTM forward": ("_cudnn_rnn",),
+               "optimizer": ("Optimizer.step",), "gather and loss": ("gather and loss",)}
+CONV_GROUPS = {"optimizer": ("Optimizer.step",), "gather and loss": ("gather and loss",), "dropout": ("dropout",),
+               "upsample": ("upsample",), "upsample backward": ("IndexSelectBackward",),
+               "conv backward": ("onvolution", "ackward"), "conv forward": ("onvolution",)}
+
+
+@contextlib.contextmanager
+def workdir(work=None):
+    """``work`` as it is, or a temporary directory under build/, removed after."""
+    if work is not None:
+        yield work
+        return
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        yield tmp
+
+
+def train_breakdown(torch, tag: str, groups, prof, idle_prof, steps: int, idle_wall_ms: float,
+                    traced_host_ms: float) -> None:
+    """Device ms per train step by group (``groups``; ``prof`` traced CPU
+    ops and kernels), and the optimizer's host ms per step beside the
+    step's (``traced_host_ms``, in the same window); the idle share from
     ``idle_prof``, which traced kernels alone over ``steps`` other steps of
     ``idle_wall_ms``, as serve_breakdown does (tracing CPU ops slows the
     host)."""
-    groups = {"cuDNN LSTM backward": "_cudnn_rnn_backward", "cuDNN LSTM forward": "_cudnn_rnn",
-              "optimizer": "Optimizer.step", "gather and loss": "gather and loss"}
     per = dict.fromkeys([*groups, "other"], 0.0)
     for e in prof.events():
         us = sum(k.duration for k in getattr(e, "kernels", []))
         name, a = None, e
         while us and name is None and a is not None:
-            name = next((g for g, key in groups.items() if key in a.name), None)
+            name = next((g for g, keys in groups.items() if all(k in a.name for k in keys)), None)
             a = a.cpu_parent
         if us:
             per[name or "other"] += us / steps / 1e3
     busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
                for e in idle_prof.key_averages()) / steps / 1e3
     if sum(per.values()) == 0 or busy == 0:
-        print("[train] breakdown not measured: torch.profiler linked no kernel to an op or recorded none")
+        print(f"[{tag}] breakdown not measured: torch.profiler linked no kernel to an op or recorded none")
         return
     opt_host = sum(e.cpu_time_total for e in prof.events() if e.name.startswith("Optimizer.step")) / steps / 1e3
-    print(f"[train] {steps} steps profiled, device ms per step: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
+    print(f"[{tag}] {steps} steps profiled, device ms per step: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
           + f" (sum {sum(per.values()):.4f}); host ms per step with CPU ops traced: the optimizer's step "
           f"{opt_host:.4f} of {traced_host_ms:.4f}; {steps} more with kernels alone traced: device busy {busy:.4f} "
           f"of {idle_wall_ms / steps:.4f} ms wall per step, idle share {1 - busy * steps / idle_wall_ms:.3f}")
 
 
-def ten_steps(torch, work: str, init, device: str, make_optimizer=None):
+def instrumented_train(torch, args):
+    """``cli.main_ae -m train`` with ``args``, each train step timed by
+    CUDA events and by the host's clock, two windows of steps profiled
+    (PROFILE_STEPS, IDLE_STEPS), each validation timed with the encoder
+    kernel's launches counted.  Returns the run's records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ae_waveforms_tpu_torch.cli import main_ae
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+    from ae_waveforms_tpu_torch.train import loop
+
+    steps, host_ms, validations, prof = [], [], [], {}
+    orig_step, orig_validate = loop.train_step, loop.validate
+
+    def timed_step(*a, **k):
+        for window, activities in ((PROFILE_STEPS, [ProfilerActivity.CPU, ProfilerActivity.CUDA]),
+                                   (IDLE_STEPS, [ProfilerActivity.CUDA])):
+            if len(steps) in window:
+                torch.cuda.synchronize()
+                if len(steps) == window[0]:
+                    prof[window] = profile(activities=activities)
+                    prof[window].start()
+                    prof[window, "t0"] = time.perf_counter()
+                else:
+                    prof[window, "ms"] = (time.perf_counter() - prof[window, "t0"]) * 1e3
+                    prof[window].stop()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t_host = time.perf_counter()
+        loss = orig_step(*a, **k)
+        host_ms.append((time.perf_counter() - t_host) * 1e3)
+        end.record()
+        steps.append((start, end, loss, a[4]))
+        return loss
+
+    def timed_validate(model, val_x, idx, mask, kind):
+        torch.cuda.synchronize()
+        before, t0 = encode_fused.launches, time.perf_counter()
+        out = orig_validate(model, val_x, idx, mask, kind)
+        validations.append(((time.perf_counter() - t0) * 1e3, encode_fused.launches - before, len(idx)))
+        return out
+
+    loop.train_step, loop.validate = timed_step, timed_validate
+    encode_fused.launches = 0
+    try:
+        t0 = time.perf_counter()
+        run_dir = main_ae.autoencoder(["-m", "train", *args])
+        train_s = time.perf_counter() - t0
+    finally:
+        loop.train_step, loop.validate = orig_step, orig_validate
+    return dict(run_dir=run_dir, train_s=train_s, steps=steps, host_ms=host_ms, validations=validations, prof=prof,
+                launches=encode_fused.launches)
+
+
+def training_readings(torch, tag: str, rec, model_class: str, groups, batch: int):
+    """Prints a run's ms per train step (p50 of the steps after the first
+    10, outside the profiled windows), beats/s, the host's time to issue a
+    step, ms per validation and the device split by ``groups``; checks that
+    every loss is finite, the validation loss fell and every weight moved.
+    Returns the validation CSV's rows."""
+    from ae_waveforms_tpu_torch.models.registry import model_def
+    from ae_waveforms_tpu_torch.train.checkpoint import load_state
+
+    torch.cuda.synchronize()
+    steps, host_ms, validations, prof = rec["steps"], np.array(rec["host_ms"]), rec["validations"], rec["prof"]
+    step_ms = np.array([s.elapsed_time(e) for s, e, _, _ in steps])
+    losses = torch.stack([loss for _, _, loss, _ in steps]).cpu().numpy()
+    beats = torch.stack([mask for _, _, _, mask in steps]).sum(1).cpu().numpy()
+    with open(os.path.join(rec["run_dir"], "training_log_validation.csv")) as f:
+        val_rows = [[float(v) for v in row.split(",")] for row in f if row.strip()]
+    val_losses = np.array([r[4] for r in val_rows])
+    # the steps after the first 10, outside the profiled windows (tracing slows the host)
+    timed = np.array([i >= 10 and not any(w[0] <= i < w[1] for w in (PROFILE_STEPS, IDLE_STEPS))
+                      for i in range(len(steps))])
+    p50 = float(np.median(step_ms[timed]))
+    val_ms = np.array([v[0] for v in validations])
+    print(f"[{tag}] {len(steps)} steps of B={batch} in {rec['train_s']:.2f} s wall (the CLI, data load and "
+          f"checkpoints included); over the {int(timed.sum())} steps after the first 10 outside the profiled windows "
+          f"(CUDA events): ms per train step p50 {p50:.4f}, min {step_ms[timed].min():.4f}, max "
+          f"{step_ms[timed].max():.4f}; {beats[timed].sum() / step_ms[timed].sum() * 1e3:.1f} beats/s (their "
+          f"{int(beats[timed].sum())} beats over their summed time; {batch / p50 * 1e3:.1f} at the p50; p50 with "
+          f"the profiled steps in {float(np.median(step_ms[10:])):.4f}); host ms "
+          f"to issue a step min {np.min(host_ms[timed]):.4f}, p50 {np.median(host_ms[timed]):.4f} "
+          f"(the host waits where the card's queue is full)")
+    print(f"[{tag}] {len(validations)} validations of {validations[0][2]} batches: ms per validation p50 "
+          f"{float(np.median(val_ms)):.3f} (wall, synchronised); validation loss {val_losses[0]:.6f} -> "
+          f"{val_losses[-1]:.6f}")
+    if (IDLE_STEPS, "ms") in prof:
+        train_breakdown(torch, tag, groups, prof[PROFILE_STEPS], prof[IDLE_STEPS], IDLE_STEPS[1] - IDLE_STEPS[0],
+                        prof[IDLE_STEPS, "ms"], float(np.mean(host_ms[PROFILE_STEPS[0]:PROFILE_STEPS[1]])))
+
+    check(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(val_losses))), "a training loss is not finite")
+    check(val_losses[-1] < val_losses[0], f"the validation loss did not fall: {val_losses[0]} -> {val_losses[-1]}")
+    template = model_def(model_class).build(10, device="cpu").jax_tree()
+    init = load_state(os.path.join(rec["run_dir"], "model_init.npz"), template)
+    final = load_state(os.path.join(rec["run_dir"], "model_autoencoder.npz"), template)
+    same = [f"{layer}.{k}" for layer in init for k in init[layer] if np.array_equal(init[layer][k], final[layer][k])]
+    check(not same, f"weights that did not move from their init: {same}")
+    return val_rows
+
+
+def ten_steps(torch, work: str, init, device: str, make_optimizer=None, model_class: str = "LSTMAutoencoder"):
     """The per-step losses and the validation losses of 10 steps at B=32,
     dropout 0, from ``init``, validating after steps 0 and 9, on a data dir
     of its own (so each run draws the same split and batch order); with
@@ -801,7 +978,8 @@ def ten_steps(torch, work: str, init, device: str, make_optimizer=None):
     loop.train_step, loop.make_optimizer = kept_step, make_optimizer or orig_make
     try:
         cfg = TrainConfig(dataset_dir=data, results_dir=os.path.join(work, "results"), batch_size=32,
-                          validation_interval=9, dropout=0.0, split_size_val=0.1, split_size_test=0.1, plotting=False)
+                          validation_interval=9, dropout=0.0, split_size_val=0.1, split_size_test=0.1, plotting=False,
+                          model_class=model_class)
         run = loop.main_train(cfg, max_steps=10, device=device, init_params=init)
     finally:
         loop.train_step, loop.make_optimizer = orig, orig_make
@@ -810,23 +988,32 @@ def ten_steps(torch, work: str, init, device: str, make_optimizer=None):
     return np.array([float(v) for v in torch.stack(losses).cpu()] + val, np.float64)
 
 
-def step_gradients(torch, device: str, x, fp32_backward: bool = True):
+def step_gradients(torch, device: str, x, fp32_backward: bool = True, model_class: str = "LSTMAutoencoder",
+                   fp32_forward: bool = True):
     """Each parameter's gradient (float64, on the CPU) after one train step
-    of the default model from seed 5's init on the batch ``x``, dropout 0.
+    of ``model_class`` from seed 5's init on the batch ``x``, dropout 0.
     With ``fp32_backward`` False the same loss's backward runs outside
-    ``cudnn_fp32``, under the process's TF32 flags: the control that shows
-    the check can see a backward in TF32."""
-    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    ``cudnn_fp32``, under the process's TF32 flags, and with
+    ``fp32_forward`` False the model's forward too (its module's
+    ``cudnn_fp32`` made a no-op): the controls that show the check can see
+    a step in TF32."""
+    from ae_waveforms_tpu_torch.models.registry import model_def
     from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
 
-    model = LSTMAutoencoder(generator=torch.Generator().manual_seed(5), device=device).train()
+    model = model_def(model_class).build(10, generator=torch.Generator().manual_seed(5), device=device).train()
     x = x.to(device)
     idx, mask = torch.arange(len(x), device=device), torch.ones(len(x), dtype=torch.bool, device=device)
     generator = torch.Generator(device=device).manual_seed(0)
     if fp32_backward:  # the trainer's own step, at learning rate 0
         train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), x, idx, mask, 0.0, generator, 0.0, "mse")
     else:
-        batch_loss(model, x, idx, mask, generator, 0.0, "mse").backward()
+        module = sys.modules[type(model).__module__]
+        guard = module.cudnn_fp32
+        module.cudnn_fp32 = guard if fp32_forward else contextlib.nullcontext
+        try:
+            batch_loss(model, x, idx, mask, generator, 0.0, "mse").backward()
+        finally:
+            module.cudnn_fp32 = guard
     return {name: p.grad.double().cpu() for name, p in model.named_parameters()}
 
 
@@ -835,26 +1022,32 @@ def grad_err(got, ref) -> float:
     return max(float((got[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ref)
 
 
-def phase_train_gradients(torch) -> None:
+def phase_train_gradients(torch, model_class: str = "LSTMAutoencoder", tag: str = "train") -> None:
     """With both TF32 flags on, one step's gradients at B=32 on the card
     against the CPU's: the trainer's step within GRAD_RTOL of each leaf's
-    largest, the control with its backward in TF32 outside it."""
+    largest, the control outside it (the LSTM's backward in TF32; the conv
+    autoencoder's forward and backward in TF32)."""
+    from ae_waveforms_tpu_torch.models.registry import model_def
+
+    conv = model_def(model_class).channel_first
     flags = torch.backends.cuda.matmul, torch.backends.cudnn
     saved = [f.allow_tf32 for f in flags]
-    x = torch.from_numpy(np.random.default_rng(32).standard_normal((32, T_BEAT, 1)).astype(np.float32))
+    shape = (32, 1, T_BEAT) if conv else (32, T_BEAT, 1)
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal(shape).astype(np.float32))
     try:
         for f in flags:
             f.allow_tf32 = True
-        ref = step_gradients(torch, "cpu", x)
-        card, control = (grad_err(step_gradients(torch, "cuda:0", x, fp32), ref) for fp32 in (True, False))
+        ref = step_gradients(torch, "cpu", x, model_class=model_class)
+        card = grad_err(step_gradients(torch, "cuda:0", x, model_class=model_class), ref)
+        control = grad_err(step_gradients(torch, "cuda:0", x, False, model_class, fp32_forward=not conv), ref)
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
-    print(f"[train] one step's gradients at B=32, both TF32 flags on, against the CPU's (largest over leaves of "
-          f"max |diff| / max |g|): the trainer's step {card:.3e}, its backward in TF32 {control:.3e} (tolerance "
-          f"{GRAD_RTOL:g}, which the second must miss)")
+    print(f"[{tag}] one step's gradients at B=32, both TF32 flags on, against the CPU's (largest over leaves of "
+          f"max |diff| / max |g|): the trainer's step {card:.3e}, its {'forward and ' if conv else ''}backward in "
+          f"TF32 {control:.3e} (tolerance {GRAD_RTOL:g}, which the second must miss)")
     check(card <= GRAD_RTOL, f"the card's gradients part from the CPU's by {card}")
-    check(control > GRAD_RTOL, f"a backward in TF32 gave {control}: the gradient check cannot see TF32")
+    check(control > GRAD_RTOL, f"a step in TF32 gave {control}: the gradient check cannot see TF32")
 
 
 def adam_host_ms(torch, dev, reps: int = 50):
@@ -882,150 +1075,287 @@ def adam_host_ms(torch, dev, reps: int = 50):
     return out
 
 
-def phase_train(torch, dev):
-    from torch.profiler import ProfilerActivity, profile
-
-    from ae_waveforms_tpu_torch.bridge import lstm_ae_params_to_numpy
+def check_test_pass(torch, tag: str, args, run: str, model_class: str):
+    """``cli.main_ae -m test`` of ``run`` on the card, timed, and the CPU's
+    ``main_test`` on the same run: latents within 2e-5, reconstructions
+    within 1e-4.  Returns the number of test beats and the encoder kernel's
+    launches."""
     from ae_waveforms_tpu_torch.cli import main_ae
     from ae_waveforms_tpu_torch.core.config import TrainConfig
-    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
     from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
-    from ae_waveforms_tpu_torch.train import loop
-    from ae_waveforms_tpu_torch.train.checkpoint import load_state
     from ae_waveforms_tpu_torch.train.eval import main_test
 
+    data, results = args[args.index("--dataset_dir") + 1], args[args.index("--results_dir") + 1]
+    encode_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main_ae.autoencoder(["-m", "test", "--trained_model", run, *args])
+    test_ms = (time.perf_counter() - t0) * 1e3
+    launches = encode_fused.launches
+    test_dir = os.path.join(results, "test_autoencoder", run)
+    card_z = np.load(os.path.join(test_dir, "np_latent_spaces.npy"))
+    card_pred = np.load(os.path.join(test_dir, "np_waves_test_pred.npy"))
+    cfg = TrainConfig(model_class=model_class)
+    cpu_out = main_test(cfg.replace(dataset_dir=data, results_dir=results, trained_model=run, plotting=False),
+                        device="cpu")
+    n_test = len(card_z)
+    print(f"[{tag}] {n_test} beats in {-(-n_test // cfg.batch_size)} batches: {test_ms:.3f} ms wall (the CLI, data "
+          f"load included), {n_test / test_ms * 1e3:.1f} latents/s")
+    z_err = float(np.abs(card_z - cpu_out[3]).max())
+    pred_err = float(np.abs(card_pred - cpu_out[2][0]).max())
+    print(f"[{tag}] card against the CPU main_test on the same run: latents {z_err:.3e} (tolerance 2e-5), "
+          f"reconstruction {pred_err:.3e} (tolerance 1e-4)")
+    check(card_z.shape == (n_test, cfg.latent_size) and card_pred.shape == (n_test, T_BEAT), "test output shapes")
+    check(z_err <= LATENT_ATOL and pred_err <= 1e-4, f"card and CPU test passes disagree: {z_err}, {pred_err}")
+    return n_test, launches
+
+
+def trajectories(torch, tag: str, work: str, model_class: str, init):
+    """10 steps at B=32 from ``init``, twice on the card and once on the
+    CPU: within 1e-5 relative of each other, and rtol 5e-4, atol 5e-5 of
+    the CPU.  Returns the three runs' losses."""
+    card_a, card_b, cpu10 = (ten_steps(torch, os.path.join(work, name), init, device, model_class=model_class)
+                             for name, device in (("a", "cuda:0"), ("b", "cuda:0"), ("c", "cpu")))
+    repeat = float(np.max(np.abs(card_a - card_b) / np.abs(card_b)))
+    cpu_err = np.abs(card_a - cpu10)
+    print(f"[{tag}] 10 steps at B=32 from one init, dropout 0 (10 train losses, 2 validation losses): two card runs "
+          f"differ by {repeat:.3e} relative at most (bit-identical: {bool(np.array_equal(card_a, card_b))}); card "
+          f"against CPU max_abs_err {cpu_err.max():.3e}, max relative {float(np.max(cpu_err / np.abs(cpu10))):.3e} "
+          f"(tolerance rtol 5e-4, atol 5e-5)")
+    check(repeat < 1e-5, f"two card runs of the same 10 steps differ by {repeat} relative")
+    check(bool(np.all(cpu_err <= 5e-5 + 5e-4 * np.abs(cpu10))), "card and CPU training trajectories differ")
+    return card_a, card_b, cpu10
+
+
+def phase_train(torch, dev, work=None):
+    """Phase 8; returns the encoder kernel's launches on its main path and,
+    for phase 9, its data dir, results dir and run (in ``work``, which
+    outlives the phase when the caller gives it)."""
+    from ae_waveforms_tpu_torch.bridge import lstm_ae_params_to_numpy
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+
     cfg = TrainConfig()
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:
+    with workdir(work) as work:
         data, results = os.path.join(work, "data"), os.path.join(work, "results")
         write_beat_dir(data, TRAIN_BEATS, TRAIN_CASES, seed=10)
         args = ["--dataset_dir", data, "--results_dir", results, *TRAIN_ARGS]
-
-        steps, host_ms, validations, prof = [], [], [], {}
-        orig_step, orig_validate = loop.train_step, loop.validate
-
-        def timed_step(*a, **k):
-            for window, activities in ((PROFILE_STEPS, [ProfilerActivity.CPU, ProfilerActivity.CUDA]),
-                                       (IDLE_STEPS, [ProfilerActivity.CUDA])):
-                if len(steps) in window:
-                    torch.cuda.synchronize()
-                    if len(steps) == window[0]:
-                        prof[window] = profile(activities=activities)
-                        prof[window].start()
-                        prof[window, "t0"] = time.perf_counter()
-                    else:
-                        prof[window, "ms"] = (time.perf_counter() - prof[window, "t0"]) * 1e3
-                        prof[window].stop()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            t_host = time.perf_counter()
-            loss = orig_step(*a, **k)
-            host_ms.append((time.perf_counter() - t_host) * 1e3)
-            end.record()
-            steps.append((start, end, loss, a[4]))
-            return loss
-
-        def timed_validate(model, val_x, idx, mask, kind):
-            torch.cuda.synchronize()
-            before, t0 = encode_fused.launches, time.perf_counter()
-            out = orig_validate(model, val_x, idx, mask, kind)
-            validations.append(((time.perf_counter() - t0) * 1e3, encode_fused.launches - before, len(idx)))
-            return out
-
-        loop.train_step, loop.validate = timed_step, timed_validate
-        encode_fused.launches = 0
-        try:
-            t0 = time.perf_counter()
-            run_dir = main_ae.autoencoder(["-m", "train", *args])
-            train_s = time.perf_counter() - t0
-        finally:
-            loop.train_step, loop.validate = orig_step, orig_validate
-        launches = {"train": encode_fused.launches}
-
-        run = os.path.basename(run_dir)
-        encode_fused.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        main_ae.autoencoder(["-m", "test", "--trained_model", run, *args])
-        test_ms = (time.perf_counter() - t0) * 1e3
-        launches["test"] = encode_fused.launches
-        test_dir = os.path.join(results, "test_autoencoder", run)
-        card_z = np.load(os.path.join(test_dir, "np_latent_spaces.npy"))
-        card_pred = np.load(os.path.join(test_dir, "np_waves_test_pred.npy"))
-
-        with open(os.path.join(run_dir, "training_log_validation.csv")) as f:
-            val_rows = [[float(v) for v in row.split(",")] for row in f if row.strip()]
-        init = load_state(os.path.join(run_dir, "model_init.npz"), lstm_ae_params_to_numpy(LSTMAutoencoder(device="cpu")))
-        final = load_state(os.path.join(run_dir, "model_autoencoder.npz"), init)
-        n_test = len(card_z)
-        cpu_out = main_test(cfg.replace(dataset_dir=data, results_dir=results, trained_model=run, plotting=False),
-                            device="cpu")
+        rec = instrumented_train(torch, args)
+        run = os.path.basename(rec["run_dir"])
+        val_rows = training_readings(torch, "train", rec, cfg.model_class, LSTM_GROUPS, cfg.batch_size)
+        validations = rec["validations"]
+        n_test, test_launches = check_test_pass(torch, "test", args, run, cfg.model_class)
+        launches = {"train": rec["launches"], "test": test_launches}
+        expected = {"train": sum(v[2] for v in validations), "test": -(-n_test // cfg.batch_size)}
+        print(f"[train] lstm_encoder launches: {launches} (one per validation batch and test batch: {expected})")
+        check(len(validations) == len(val_rows) and launches == expected, f"lstm_encoder launches {launches}, "
+              f"expected {expected}")
 
         # the same 10 steps from one init, twice on the card and once on the CPU
         init10 = lstm_ae_params_to_numpy(LSTMAutoencoder(generator=torch.Generator().manual_seed(11), device="cpu"))
-        card_a, card_b, cpu10 = (ten_steps(torch, os.path.join(work, name), init10, device)
-                                 for name, device in (("a", "cuda:0"), ("b", "cuda:0"), ("c", "cpu")))
+        _, _, cpu10 = trajectories(torch, "train", work, cfg.model_class, init10)
         # the trade of torch's fused Adam: its 10 steps on the card against the port's Adam on the CPU
         fused10 = ten_steps(torch, os.path.join(work, "d"), init10, "cuda:0",
                             lambda name, params, lr, *a, **k: torch.optim.Adam(params, lr, fused=True))
     phase_train_gradients(torch)
     adam_ms = adam_host_ms(torch, dev)
-
-    torch.cuda.synchronize()
-    step_ms = np.array([s.elapsed_time(e) for s, e, _, _ in steps])
-    losses = torch.stack([loss for _, _, loss, _ in steps]).cpu().numpy()
-    beats = torch.stack([mask for _, _, _, mask in steps]).sum(1).cpu().numpy()
-    val_losses = np.array([r[4] for r in val_rows])
-    batch = cfg.batch_size
-    # the steps after the first 10, outside the profiled windows (tracing slows the host)
-    timed = np.array([i >= 10 and not any(w[0] <= i < w[1] for w in (PROFILE_STEPS, IDLE_STEPS))
-                      for i in range(len(steps))])
-    p50 = float(np.median(step_ms[timed]))
-    val_ms = np.array([v[0] for v in validations])
-    print(f"[train] {len(steps)} steps of B={batch} in {train_s:.2f} s wall (the CLI, data load and checkpoints "
-          f"included); over the {int(timed.sum())} steps after the first 10 outside the profiled windows (CUDA "
-          f"events): ms per train step p50 {p50:.4f}, min {step_ms[timed].min():.4f}, max "
-          f"{step_ms[timed].max():.4f}; {beats[timed].sum() / step_ms[timed].sum() * 1e3:.1f} beats/s (their "
-          f"{int(beats[timed].sum())} beats over their summed time; {batch / p50 * 1e3:.1f} at the p50; p50 with "
-          f"the profiled steps in {float(np.median(step_ms[10:])):.4f}); host ms "
-          f"to issue a step min {np.min(np.array(host_ms)[timed]):.4f}, p50 {np.median(np.array(host_ms)[timed]):.4f} "
-          f"(the host waits where the card's queue is full)")
-    print(f"[train] {len(validations)} validations of {validations[0][2]} batches: ms per validation p50 "
-          f"{float(np.median(val_ms)):.3f} (wall, synchronised); validation loss {val_losses[0]:.6f} -> "
-          f"{val_losses[-1]:.6f}")
-    print(f"[test] {n_test} beats in {-(-n_test // batch)} batches: {test_ms:.3f} ms wall (the CLI, data load "
-          f"included), {n_test / test_ms * 1e3:.1f} latents/s")
-    if (IDLE_STEPS, "ms") in prof:
-        train_breakdown(torch, prof[PROFILE_STEPS], prof[IDLE_STEPS], IDLE_STEPS[1] - IDLE_STEPS[0],
-                        prof[IDLE_STEPS, "ms"], float(np.mean(host_ms[PROFILE_STEPS[0]:PROFILE_STEPS[1]])))
-
-    check(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(val_losses))), "a training loss is not finite")
-    check(val_losses[-1] < val_losses[0], f"the validation loss did not fall: {val_losses[0]} -> {val_losses[-1]}")
-    same = [f"{layer}.{k}" for layer in init for k in init[layer] if np.array_equal(init[layer][k], final[layer][k])]
-    check(not same, f"weights that did not move from their init: {same}")
-    expected = {"train": sum(v[2] for v in validations), "test": -(-n_test // batch)}
-    print(f"[train] lstm_encoder launches: {launches} (one per validation batch and test batch: {expected})")
-    check(len(validations) == len(val_rows) and launches == expected, f"lstm_encoder launches {launches}, "
-          f"expected {expected}")
-    z_err = float(np.abs(card_z - cpu_out[3]).max())
-    pred_err = float(np.abs(card_pred - cpu_out[2][0]).max())
-    print(f"[test] card against the CPU main_test on the same run: latents {z_err:.3e} (tolerance 2e-5), "
-          f"reconstruction {pred_err:.3e} (tolerance 1e-4)")
-    check(card_z.shape == (n_test, cfg.latent_size) and card_pred.shape == (n_test, T_BEAT), "test output shapes")
-    check(z_err <= LATENT_ATOL and pred_err <= 1e-4, f"card and CPU test passes disagree: {z_err}, {pred_err}")
-    repeat = float(np.max(np.abs(card_a - card_b) / np.abs(card_b)))
-    cpu_err = np.abs(card_a - cpu10)
-    print(f"[train] 10 steps at B=32 from one init, dropout 0 (10 train losses, 2 validation losses): two card runs "
-          f"differ by {repeat:.3e} relative at most (bit-identical: {bool(np.array_equal(card_a, card_b))}); card "
-          f"against CPU max_abs_err {cpu_err.max():.3e}, max relative {float(np.max(cpu_err / np.abs(cpu10))):.3e} "
-          f"(tolerance rtol 5e-4, atol 5e-5)")
     fused_err = float(np.max(np.abs(fused10 - cpu10) / np.abs(cpu10)))
     print(f"[train] Adam, host ms per step on the default model: the port's (optax's order) {adam_ms['port']:.4f}, "
           f"torch.optim.Adam(fused=True) {adam_ms['fused']:.4f}; the fused one's 10 steps on the card against the "
           f"port's on the CPU: max relative {fused_err:.3e}")
-    check(repeat < 1e-5, f"two card runs of the same 10 steps differ by {repeat} relative")
-    check(bool(np.all(cpu_err <= 5e-5 + 5e-4 * np.abs(cpu10))), "card and CPU training trajectories differ")
-    return launches["train"] + launches["test"]
+    return launches["train"] + launches["test"], dict(data=data, results=results, run=run)
+
+
+# phase 9: the conv autoencoder trained and tested on phase 8's data, then the reconstruction study
+CONV = "LeNet5AutoencoderAvgPool"
+SWEEP_CANDIDATES = 2000  # cli.analysis's --search_calls default
+GBT_PARAMS = dict(max_depth=6, n_estimators=100, learning_rate=0.3)
+
+
+def conv_scorer(torch, dev, results: str, run: str):
+    """``Scorer.from_run`` of the conv run with phase 4's random GBT head,
+    against the CPU ``Scorer`` (latents (n, 10) within 2e-5, reconstruction
+    1e-4, probability 1e-5); prints the 64-beat p50.  Returns the routing
+    kernel's launches in the scored run."""
+    from ae_waveforms_tpu_torch.bridge import gbt_from_numpy
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+    from ae_waveforms_tpu_torch.serve import Scorer
+
+    cfg = TrainConfig(model_class=CONV)
+    pool = synthetic_beats(np.random.default_rng(3), max(SIZES))
+    gbt_arrays = random_gbt_arrays(np.random.default_rng(4))
+    route_rows.launches = 0
+    scorer = Scorer.from_run(results, run, cfg, device=dev)
+    scorer.warmup()
+    edges = separated_edges(scorer.score(pool)["latents"], 64, margin=LATENT_ATOL)
+    scorer.attach_gbt(gbt_from_numpy(**gbt_arrays, edges=edges, params=GBT_PARAMS, device=dev))
+    card = {n: scorer.score(pool[:n]) for n in SIZES}
+    launches = route_rows.launches
+    times = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        scorer.score(pool[:64])
+        times.append(time.perf_counter() - t0)
+    p50 = float(np.median(times))
+    print(f"[conv serve] launches of gbt_route during the scored run: {launches}; 64 beats (GBT head): p50 "
+          f"{p50 * 1e3:.3f} ms, {64 / p50:.1f} beats/s")
+    cpu = Scorer.from_run(results, run, cfg, device="cpu")
+    cpu.attach_gbt(gbt_from_numpy(**gbt_arrays, edges=edges, params=GBT_PARAMS, device="cpu"))
+    tolerances = {"latents": LATENT_ATOL, "reconstruction": 1e-4, "probability": 1e-5}
+    for n in SIZES:
+        g, c = card[n], cpu.score(pool[:n])
+        check(sorted(g) == sorted(c), f"key sets differ: {sorted(g)} vs {sorted(c)}")
+        check(g["latents"].shape == (n, cfg.latent_size) and g["reconstruction"].shape == (n, T_BEAT),
+              f"conv Scorer shapes at {n} beats: {g['latents'].shape}, {g['reconstruction'].shape}")
+        check(all(np.all(np.isfinite(v)) for v in g.values()), f"non-finite output at {n} beats")
+        errs = {k: float(np.abs(g[k] - c[k]).max()) for k in tolerances}
+        print(f"[conv serve] {n} beats vs CPU Scorer: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        check(all(v <= tolerances[k] for k, v in errs.items()), f"GPU and CPU Scorers disagree: {errs}")
+    check(launches > 0, "the routing kernel was not launched by the conv Scorer")
+    return launches
+
+
+def reconstruction_study(torch, dev, data: str, results: str, runs):
+    """``analysis.trad_vs_ae.compare`` on the card with the sigma sweep at
+    SWEEP_CANDIDATES and ``runs`` (model_runs), timed by part; the card's
+    objective against the CPU's on 64 candidates (rtol 1e-5 + atol 1e-7)
+    and its final reconstruction against the CPU's (5e-5).  Returns the
+    encoder kernel's launches in ``compare``."""
+    from ae_waveforms_tpu_torch.analysis import trad_vs_ae
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.core.schema import load_arrays
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+    from ae_waveforms_tpu_torch.traditional.reconstruction import reconstruct_gaussian_batch
+    from ae_waveforms_tpu_torch.traditional.sigma_search import make_objective, prepare_reconstruction_inputs
+    from ae_waveforms_tpu_torch.train import eval as eval_mod
+
+    for f in glob.glob(os.path.join(results, "networks_autoencoder", runs[0]["trained_model"], "indices_test_*.npy")):
+        shutil.copy(f, data)
+    arrays = load_arrays(data)
+    t = {"objective_s": 0.0, "candidates": 0, "tests": []}
+    orig = trad_vs_ae.make_objective, trad_vs_ae.sweep_search, trad_vs_ae.reconstruct_gaussian_batch, eval_mod.main_test
+
+    def timed_make_objective(*a, **k):
+        objective = orig[0](*a, **k)
+
+        def timed(maps):
+            t0 = time.perf_counter()
+            out = objective(maps)  # numpy: the card has finished
+            t["objective_s"] += time.perf_counter() - t0
+            t["candidates"] += len(out)
+            return out
+        return timed
+
+    def timed_sweep(*a, **k):
+        t0 = time.perf_counter()
+        t["best"] = orig[1](*a, **k)
+        t["search_s"] = time.perf_counter() - t0
+        return t["best"]
+
+    def timed_recon(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig[2](*a, **k)
+        torch.cuda.synchronize()
+        t["recon_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    def timed_test(cfg, *a, **k):
+        torch.cuda.synchronize()
+        before, t0 = encode_fused.launches, time.perf_counter()
+        out = orig[3](cfg, *a, **k)
+        t["tests"].append((cfg.model_class, (time.perf_counter() - t0) * 1e3, encode_fused.launches - before))
+        return out
+
+    trad_vs_ae.make_objective, trad_vs_ae.sweep_search = timed_make_objective, timed_sweep
+    trad_vs_ae.reconstruct_gaussian_batch, eval_mod.main_test = timed_recon, timed_test
+    encode_fused.launches = 0
+    try:
+        t0 = time.perf_counter()
+        out = trad_vs_ae.compare(TrainConfig(dataset_dir=data, results_dir=results, plotting=False), arrays=arrays,
+                                 model_runs=runs, run_sigma_search=True, search_candidates=SWEEP_CANDIDATES,
+                                 device=dev)
+        wall_s = time.perf_counter() - t0
+    finally:
+        (trad_vs_ae.make_objective, trad_vs_ae.sweep_search, trad_vs_ae.reconstruct_gaussian_batch,
+         eval_mod.main_test) = orig
+    launches = encode_fused.launches
+    best_map, best = t["best"]
+    print(f"[analysis] compare on the card: {wall_s:.3f} s wall; sigma sweep {t['search_s']:.3f} s wall, "
+          f"{t['candidates']} candidates, {t['candidates'] / t['objective_s']:.1f} candidates/s over the objective's "
+          f"{t['objective_s']:.3f} s; best map {best_map.tolist()} (objective {best:.6f}); final reconstruction "
+          f"{t['recon_ms']:.3f} ms; test passes " + ", ".join(f"{m} {ms:.3f} ms ({k} lstm_encoder launches)"
+                                                               for m, ms, k in t["tests"]))
+    check(list(out) == ["traditional"] + [r["trained_model"] for r in runs], f"compare's methods {list(out)}")
+    classes = {r["trained_model"]: r.get("model_class", "LSTMAutoencoder") for r in runs}
+    for key, r in out.items():
+        check(all(np.all(np.isfinite(v)) for v in (r.mse, r.rmse_per_sample, r.prd_per_sample, r.qs_per_sample)),
+              f"{r.label}: a metric is not finite")
+        print(f"[analysis] {r.label}{f' ({classes[key]})' if key in classes else ''}: MSE {r.mse:.6f}, median RMSE {r.rmse_median:.6f} (IQR "
+              f"{np.percentile(r.rmse_per_sample, 25):.6f} to {np.percentile(r.rmse_per_sample, 75):.6f}), median "
+              f"QS {r.qs_median:.6f}, n {len(r.rmse_per_sample)}")
+    check(t["candidates"] >= SWEEP_CANDIDATES + 1 and bool(np.all((best_map >= 1) & (best_map <= 5))),
+          f"the sweep scored {t['candidates']} candidates, best map {best_map}")
+    check(launches == t["tests"][0][2] > 0, f"lstm_encoder launches in compare: {launches}")
+
+    te = np.load(sorted(glob.glob(os.path.join(data, "indices_test_*.npy")))[0])
+    beats = np.asarray(arrays.waves, np.float32)[te]
+    fx, fy, bs, xt = prepare_reconstruction_inputs(np.asarray(arrays.features)[te])
+    cands = np.random.default_rng(5).integers(1, 6, size=(64, 12)).astype(np.float32)
+    card_obj, cpu_obj = (make_objective(fx, fy, bs, xt, beats - beats.max(1, keepdims=True), device=d)(cands)
+                         for d in (dev, "cpu"))
+    obj_err = float(np.max(np.abs(card_obj - cpu_obj) / (1e-7 + 1e-5 * np.abs(cpu_obj))))
+    card_rec, cpu_rec = (reconstruct_gaussian_batch(fx, fy, xt, bs, best_map, device=d).cpu().numpy()
+                         for d in (dev, "cpu"))
+    rec_err = float(np.abs(card_rec - cpu_rec).max())
+    print(f"[analysis] the card against the CPU: the objective on 64 candidates max |diff| / (1e-7 + 1e-5 |cpu|) "
+          f"{obj_err:.3e} (at most 1), the final reconstruction of {len(beats)} beats max_abs_err {rec_err:.3e} "
+          f"(tolerance 5e-5)")
+    check(obj_err <= 1.0, "the card's objective parts from the CPU's")
+    check(rec_err <= 5e-5, f"the card's reconstruction parts from the CPU's by {rec_err}")
+    return launches
+
+
+def phase_reconstruction(torch, dev, lstm=None):
+    """Phase 9 on phase 8's data dir and LSTM run (``lstm``, as phase 8
+    returns it; without one, a data dir and an LSTM run of its own through
+    ``cli.main_ae``).  Returns the encoder and routing kernels' launches on
+    its main paths."""
+    from ae_waveforms_tpu_torch.bridge import conv_ae_params_to_numpy
+    from ae_waveforms_tpu_torch.cli import analysis as cli_analysis
+    from ae_waveforms_tpu_torch.cli import main_ae
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
+
+    batch = TrainConfig().batch_size
+    with workdir(None if lstm is None else os.path.dirname(lstm["data"])) as work:
+        if lstm is None:
+            data, results = os.path.join(work, "data"), os.path.join(work, "results")
+            write_beat_dir(data, TRAIN_BEATS, TRAIN_CASES, seed=10)
+            run = main_ae.autoencoder(["-m", "train", "--dataset_dir", data, "--results_dir", results, *TRAIN_ARGS])
+            lstm = dict(data=data, results=results, run=os.path.basename(run))
+        data, results = lstm["data"], lstm["results"]
+        args = ["--dataset_dir", data, "--results_dir", results, "--model_class", CONV, *TRAIN_ARGS]
+        rec = instrumented_train(torch, args)
+        conv_run = os.path.basename(rec["run_dir"])
+        training_readings(torch, "conv train", rec, CONV, CONV_GROUPS, batch)
+        check(rec["launches"] == 0, f"the conv trainer launched the LSTM encoder kernel {rec['launches']} times")
+        check_test_pass(torch, "conv test", args, conv_run, CONV)
+        init10 = conv_ae_params_to_numpy(LeNet5AutoencoderAvgPool(generator=torch.Generator().manual_seed(11),
+                                                                  device="cpu"))
+        trajectories(torch, "conv train", os.path.join(work, "conv10"), CONV, init10)
+        phase_train_gradients(torch, CONV, "conv train")
+        k2 = conv_scorer(torch, dev, results, conv_run)
+        runs = [dict(trained_model=lstm["run"], latent_size=10),
+                dict(trained_model=conv_run, latent_size=10, model_class=CONV)]
+        k3 = reconstruction_study(torch, dev, data, results, runs)
+        t0 = time.perf_counter()
+        cli_analysis.main(["--dataset_dir", data, "--results_dir", results, "--search", "gp", "--search_calls", "200",
+                           "--model", f"{lstm['run']}:10", "--device", str(dev)])
+        print(f"[analysis] cli.analysis --search gp --search_calls 200 --model {lstm['run']}:10: "
+              f"{time.perf_counter() - t0:.3f} s wall")
+    return {"lstm_encoder": k3, "gbt_route": k2}
 
 
 def main() -> int:
@@ -1061,15 +1391,19 @@ def main() -> int:
     hist = timed("5 gbt_hist", phase_hist, torch, dev)
     classify_launches = timed("6 classify", phase_classify, torch)
     timed("7 determinism", phase_determinism, torch, dev)
-    train_launches = timed("8 AE train and test", phase_train, torch, dev)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:  # phase 8's data and LSTM run, for phase 9
+        train_launches, lstm = timed("8 AE train and test", phase_train, torch, dev, work)
+        study_launches = timed("9 conv AE and reconstruction study", phase_reconstruction, torch, dev, lstm)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
              replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109",
-             launches=serve_launches["lstm_encoder"] + train_launches, **encoder),
+             launches=serve_launches["lstm_encoder"] + train_launches + study_launches["lstm_encoder"], **encoder),
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
              replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
-             launches=serve_launches["gbt_route"] + classify_launches["gbt_route"], **route),
+             launches=serve_launches["gbt_route"] + classify_launches["gbt_route"] + study_launches["gbt_route"],
+             **route),
         dict(name="gbt_hist", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_hist.cu",
              replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193", launches=classify_launches["gbt_hist"], **hist),
     ]

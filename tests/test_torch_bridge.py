@@ -83,8 +83,9 @@ def test_checkpoint_leaf_count_mismatch_raises(tmp_path):
 
 
 def test_unknown_model_class_raises_jax_text():
-    with pytest.raises(ValueError, match=r"unknown model class 'LeNet5AutoencoderAvgPool'; available: \['LSTMAutoencoder'\]"):
-        model_def("LeNet5AutoencoderAvgPool")
+    with pytest.raises(ValueError, match=r"unknown model class 'LeNet5Autoencoder'; available: "
+                                         r"\['LSTMAutoencoder', 'LeNet5AutoencoderAvgPool'\]"):
+        model_def("LeNet5Autoencoder")
 
 
 def test_import_leaves_jax_out():

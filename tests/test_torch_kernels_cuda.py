@@ -6,10 +6,14 @@ and skips with a reason when none is.  Run on a machine with an NVIDIA GPU:
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda -q
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
 
+from ae_waveforms_tpu_torch.models import conv_ae
+from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 from ae_waveforms_tpu_torch.ops.gbt_hist import (
     active_clusters,
@@ -26,6 +30,7 @@ from ae_waveforms_tpu_torch.ops.gbt_route import (
     route_levels, route_levels_reference, route_rows, route_rows_reference, route_spans,
 )
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
+from ae_waveforms_tpu_torch.traditional.reconstruction import reconstruct_gaussian_sweep
 from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
 from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
 
@@ -186,6 +191,134 @@ def test_decoder_keeps_full_float32_under_tf32_flags():
     finally:
         for f, v in zip(flags, saved):
             f.allow_tf32 = v
+
+
+@pytest.fixture
+def tf32_flags():
+    """Both TF32 flags on inside the test, as they were after it."""
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    for f in flags:
+        f.allow_tf32 = True
+    yield flags
+    for f, v in zip(flags, saved):
+        f.allow_tf32 = v
+
+
+def _rel_err(got, ref) -> float:
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def test_conv_ae_forward_keeps_full_float32_under_tf32_flags(tf32_flags, monkeypatch):
+    """With both TF32 flags on, the conv autoencoder's eval forward on the
+    card (its latent and its reconstruction) agrees with the CPU's within
+    1e-4 of each one's largest |value|, and leaves both flags on.  The same
+    forward with the model's ``cudnn_fp32`` a no-op, so its convolutions in
+    TF32, must miss that: the check can see the fault it guards against
+    (the latent shows it; at random weights the reconstruction's error
+    stays small beside its bias)."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((64, 1, 320)).astype(np.float32))
+    cpu_model, card_model = (LeNet5AutoencoderAvgPool(generator=torch.Generator().manual_seed(7), device=d).eval()
+                             for d in ("cpu", dev))
+
+    def outputs(model, x):
+        with torch.no_grad():
+            return model.encode(x).cpu(), model(x).cpu()
+
+    ref = outputs(cpu_model, x)
+    card = outputs(card_model, x.to(dev))
+    assert [f.allow_tf32 for f in tf32_flags] == [True, True]
+    monkeypatch.setattr(conv_ae, "cudnn_fp32", contextlib.nullcontext)
+    tf32 = outputs(card_model, x.to(dev))
+    err, tf32_err = ([_rel_err(a, b) for a, b in zip(out, ref)] for out in (card, tf32))
+    print(f"conv AE forward against the CPU (max |diff| / max |ref| of the latent, the reconstruction): "
+          f"{err[0]:.3e}, {err[1]:.3e}; in TF32 {tf32_err[0]:.3e}, {tf32_err[1]:.3e} (tolerance 1e-4)")
+    assert max(err) <= 1e-4
+    assert max(tf32_err) > 1e-4
+
+
+def _conv_step_gradients(device, x):
+    """Each parameter's gradient after one train step of the conv
+    autoencoder from seed 5's init, dropout 0, at learning rate 0."""
+    model = LeNet5AutoencoderAvgPool(generator=torch.Generator().manual_seed(5), device=device).train()
+    x = x.to(device)
+    idx, mask = torch.arange(len(x), device=device), torch.ones(len(x), dtype=torch.bool, device=device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), x, idx, mask, 0.0, generator, 0.0, "mse")
+    return {name: p.grad.double().cpu() for name, p in model.named_parameters()}
+
+
+def test_conv_ae_train_step_gradients_keep_full_float32_under_tf32_flags(tf32_flags, monkeypatch):
+    """With both TF32 flags on, one conv train step's gradients on the card
+    agree with the CPU's within 1e-4 of each leaf's largest |g|.  The same
+    step with its forward and backward outside ``cudnn_fp32`` (the model's
+    a no-op, the trainer's too) must miss that tolerance."""
+    dev = _card()
+    x = torch.from_numpy(np.random.default_rng(32).standard_normal((32, 1, 320)).astype(np.float32))
+    ref = _conv_step_gradients("cpu", x)
+    card = _conv_step_gradients(dev, x)
+    assert [f.allow_tf32 for f in tf32_flags] == [True, True]
+    monkeypatch.setattr(conv_ae, "cudnn_fp32", contextlib.nullcontext)
+    monkeypatch.setattr("ae_waveforms_tpu_torch.train.loop.cudnn_fp32", contextlib.nullcontext)
+    tf32 = _conv_step_gradients(dev, x)
+    err = {k: _rel_err(card[k], ref[k]) for k in ref}
+    tf32_err = max(_rel_err(tf32[k], ref[k]) for k in ref)
+    print(f"conv AE step's gradients against the CPU's: {max(err.values()):.3e}, in TF32 {tf32_err:.3e} "
+          f"(tolerance 1e-4)")
+    assert all(v <= 1e-4 for v in err.values()), err
+    assert tf32_err > 1e-4
+
+
+@pytest.mark.parametrize("matmul,cudnn", [(True, True), (False, False), (True, False)])
+def test_conv_ae_leaves_the_tf32_flags(matmul, cudnn):
+    """A conv forward and backward on the card leave the process's TF32
+    flags as they were."""
+    dev = _card()
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f, v in zip(flags, (matmul, cudnn)):
+            f.allow_tf32 = v
+        model = LeNet5AutoencoderAvgPool(device=dev).train()
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal((8, 1, 320)).astype(np.float32)).to(dev)
+        idx, mask = torch.arange(8, device=dev), torch.ones(8, dtype=torch.bool, device=dev)
+        train_step(model, make_optimizer("adam", model.parameters(), 1e-3), x, idx, mask, 1e-3,
+                   torch.Generator(device=dev).manual_seed(0), 0.2, "mse")
+        with torch.no_grad():
+            model.eval()(x)
+        assert [f.allow_tf32 for f in flags] == [matmul, cudnn]
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def _fiducials(rng, n):
+    """(n, 11) fiducials in ms from R, R at 0 and y -1e-10, 3 NaN x on a
+    third of the beats; baselines, a NaN one on a fifth."""
+    base_x = np.array([-180.0, -160.0, -140.0, -35.0, -20.0, 0.0, 25.0, 40.0, 120.0, 180.0, 240.0])
+    x = base_x + rng.uniform(-6, 6, size=(n, 11))
+    y = -1.0 + rng.uniform(-0.2, 0.2, size=(n, 11))
+    x[:, 5], y[:, 5] = 0.0, -1e-10
+    x[::3, [1, 4, 8]] = np.nan
+    b = np.nanmean(y[:, [1, 2, 8, 10]], axis=1)
+    b[::5] = np.nan
+    return x.astype(np.float32), y.astype(np.float32), b.astype(np.float32)
+
+
+def test_reconstruct_gaussian_sweep_matches_the_cpu():
+    """The reconstruction sweep on the card against the CPU within 5e-5,
+    the JAX reconstruction's own tolerance against its oracle."""
+    dev = _card()
+    rng = np.random.default_rng(9)
+    xs, ys, bs = _fiducials(rng, 300)
+    x_t = (np.linspace(-106, 213, 320) / 500 * 1000).astype(np.float32)
+    maps = rng.integers(1, 6, size=(40, 12)).astype(np.float32)
+    card = reconstruct_gaussian_sweep(xs, ys, x_t, bs, maps, device=dev)
+    assert card.device.type == "cuda"
+    cpu = reconstruct_gaussian_sweep(xs, ys, x_t, bs, maps, device="cpu")
+    assert card.shape == cpu.shape == (40, 300, 320)
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=5e-5, equal_nan=True)
 
 
 # (S, n, n_nodes): the serving head's levels, a wide level, the fit's deepest

@@ -1,9 +1,10 @@
-"""The port's training slice as a whole against the JAX package: both
-``main_train``s on the same toy arrays (320-sample beats, 96 rows of 12
-cases, B = 16, validation every 2 steps, 5 steps over two epochs, dropout
-0, the cosine schedule), the port starting from the JAX run's
-``model_init.npz``; then each package's ``main_test`` on both run
-directories; the port's CLI; full-state resume.
+"""The port's training slice as a whole against the JAX package, for each
+model class (the LSTM and the conv autoencoder): both ``main_train``s on
+the same toy arrays (320-sample beats, 96 rows of 12 cases, B = 16,
+validation every 2 steps, 5 steps over two epochs, dropout 0, the cosine
+schedule), the port starting from the JAX run's ``model_init.npz``; then
+each package's ``main_test`` on both run directories and its RMSE plot;
+the port's CLI; full-state resume.
 
 Tolerances: split files, CSV epochs and steps, and the run directory's file
 names equal; learning rates 1e-7 relative (float32 on both sides); train
@@ -15,8 +16,11 @@ reconstructions 1e-4, as the serving slice holds them.
 import copy
 import csv
 import glob
+import importlib.util
+import logging
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -26,11 +30,10 @@ from ae_waveforms_tpu.core.config import TrainConfig as JaxTrainConfig
 from ae_waveforms_tpu.core.schema import ArraySet as JaxArraySet
 from ae_waveforms_tpu.train.eval import main_test as jax_main_test
 from ae_waveforms_tpu.train.loop import main_train as jax_main_train
-from ae_waveforms_tpu_torch.bridge import lstm_ae_params_to_numpy
 from ae_waveforms_tpu_torch.cli.main_ae import autoencoder
 from ae_waveforms_tpu_torch.core.config import TrainConfig
 from ae_waveforms_tpu_torch.core.schema import ArraySet, save_arrays
-from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+from ae_waveforms_tpu_torch.models.registry import model_def
 from ae_waveforms_tpu_torch.train import checkpoint as ckpt
 from ae_waveforms_tpu_torch.train import loop
 from ae_waveforms_tpu_torch.train.eval import main_test
@@ -67,25 +70,26 @@ def _rows(run_dir, name="training_log_validation.csv"):
         return [[float(v) for v in row] for row in csv.reader(f)]
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+@pytest.fixture(scope="module", params=["LSTMAutoencoder", "LeNet5AutoencoderAvgPool"])
+def runs(tmp_path_factory, request):
     root = str(tmp_path_factory.mktemp("train"))
     arrays = _toy_arrays()
     for name in ("jax_data", "port_data"):  # each package draws its own split
         save_arrays(arrays, os.path.join(root, name))
+    kw = {**KW, "model_class": request.param}
     jax_arrays = JaxArraySet(arrays.waves, arrays.features, arrays.info)
-    jax_cfg = JaxTrainConfig(dataset_dir=os.path.join(root, "jax_data"), results_dir=os.path.join(root, "jax"), **KW)
+    jax_cfg = JaxTrainConfig(dataset_dir=os.path.join(root, "jax_data"), results_dir=os.path.join(root, "jax"), **kw)
     jax_run = jax_main_train(jax_cfg, jax_arrays, max_steps=MAX_STEPS)
     init = ckpt.load_state(os.path.join(jax_run, "model_init.npz"),
-                           lstm_ae_params_to_numpy(LSTMAutoencoder(device="cpu")))
-    cfg = TrainConfig(dataset_dir=os.path.join(root, "port_data"), results_dir=os.path.join(root, "port"), **KW)
+                           model_def(request.param).build(10, device="cpu").jax_tree())
+    cfg = TrainConfig(dataset_dir=os.path.join(root, "port_data"), results_dir=os.path.join(root, "port"), **kw)
     port_run = main_train(cfg, arrays, max_steps=MAX_STEPS, device="cpu", init_params=init)
     tests = {}
     for run, run_dir in (("jax", jax_run), ("port", port_run)):
         test_kw = dict(results_dir=os.path.dirname(os.path.dirname(run_dir)), trained_model=os.path.basename(run_dir))
         tests["jax", run] = jax_main_test(jax_cfg.replace(**test_kw), jax_arrays)
         tests["port", run] = main_test(cfg.replace(**test_kw), arrays, device="cpu")
-    return {"jax": jax_run, "port": port_run, "tests": tests}
+    return {"jax": jax_run, "port": port_run, "tests": tests, "cfg": cfg, "arrays": arrays}
 
 
 @pytest.mark.parametrize("stem", SPLIT_FILES)
@@ -141,12 +145,13 @@ def test_each_package_reads_the_others_run(runs, run, what, atol):
     np.testing.assert_allclose(g, w, rtol=0, atol=atol)
 
 
-def test_cli_train_then_test(tmp_path, capsys):
+@pytest.mark.parametrize("model_args", [[], ["--model_class", "LeNet5AutoencoderAvgPool"]], ids=["default", "conv"])
+def test_cli_train_then_test(tmp_path, capsys, model_args):
     arrays = _toy_arrays()
     save_arrays(arrays, str(tmp_path / "data"))
     args = ["--dataset_dir", str(tmp_path / "data"), "--results_dir", str(tmp_path / "results"), "--batch_size",
             "32", "--epochs", "1", "--validation_interval", "2", "--split_size_val", "0.2", "--split_size_test", "0.1",
-            "--seed", "0", "--plotting", "", "--device", "cpu"]
+            "--seed", "0", "--plotting", "", "--device", "cpu", *model_args]
     run_dir = autoencoder(["-m", "train", *args])
     assert [r[:2] for r in _rows(run_dir)] == [[1, 0]]
     assert os.path.isfile(os.path.join(run_dir, "model_autoencoder.npz"))
@@ -160,6 +165,24 @@ def test_cli_train_then_test(tmp_path, capsys):
     assert np.all(np.isfinite(pred)) and np.all(np.isfinite(latents)) and np.isfinite(loss)
     out = capsys.readouterr().out
     assert f"Global test MSE loss: {loss:.6f}" in out and f"Sample wise average test PRD loss: {prd:.6f}" in out
+
+
+@pytest.mark.parametrize("matplotlib", [True, False])
+def test_test_pass_plots_where_matplotlib_is_installed(runs, tmp_path, monkeypatch, caplog, matplotlib):
+    """With ``plotting`` on, the test pass draws RMSE_distribution.png as
+    the JAX package does; without matplotlib it logs a warning naming it
+    and writes no plot."""
+    if not matplotlib:
+        real = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec",
+                            lambda name, *a: None if name == "matplotlib" else real(name, *a))
+    cfg = runs["cfg"].replace(results_dir=str(tmp_path), trained_model="run", plotting=True)
+    shutil.copytree(runs["port"], str(tmp_path / "networks_autoencoder" / "run"))
+    with caplog.at_level(logging.WARNING, logger="test"):
+        main_test(cfg, runs["arrays"], device="cpu")
+    drawn = os.path.isfile(str(tmp_path / "test_autoencoder" / "run" / "RMSE_distribution.png"))
+    assert drawn == matplotlib
+    assert ("matplotlib is not installed" in caplog.text) != matplotlib
 
 
 @pytest.mark.parametrize("flag,value", [("--seeds", "1,2"), ("--lr_sweep", "1,0.5"), ("--latent_sizes", "10,20"),
