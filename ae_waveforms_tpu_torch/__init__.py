@@ -10,7 +10,8 @@ module's counterpart is found under the same path:
                    autoencoder as ``nn.Module``s, their layers and registry.
 - ``ops``          hand-written CUDA kernels for Hopper (``csrc/*.cu``), each
                    beside its plain PyTorch version: the fused LSTM encoder,
-                   GBT histograms and GBT row routing.
+                   GBT histograms and GBT row routing; and the binding of
+                   the float64 C++ delineator (``csrc/delineate.cpp``).
 - ``classify``     the GBT classifier (fit and predict), LHS sampling and
                    the evaluation harness (grid search, size x seed sweep,
                    PPV analysis).
@@ -18,9 +19,17 @@ module's counterpart is found under the same path:
                    batched over beats and sigma maps, and the sigma search.
 - ``analysis``     the traditional-vs-AE reconstruction comparison and the
                    plots (matplotlib, where installed).
-- ``cli``          the AE CLI (``main_ae``: train, test), the classify CLI
-                   (``latent``, ``features``, ``ppv``) and the analysis CLI.
-- ``core``         the training config and the array schema.
+- ``signals``      ECG filtering, windows, R peaks, QC, median beats,
+                   delineation (float64 host and float32 device) and
+                   features.
+- ``data``         extraction from records to the three arrays (the
+                   per-case cache, the streaming device engine), synthetic
+                   records, the VitalDB loader.
+- ``cli``          the extraction CLI, the AE CLI (``main_ae``: train,
+                   test), the classify CLI (``latent``, ``features``,
+                   ``ppv``) and the analysis CLI.
+- ``core``         the extraction and training configs and the array
+                   schema.
 - ``train``        AE training (``main_train``: the patient split, losses,
                    schedules, optimizers, logs) and the test pass with
                    latent export (``main_test``); checkpoints in the JAX
@@ -31,7 +40,8 @@ module's counterpart is found under the same path:
 
 Entry points run on the first CUDA device unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper runs its plain version.
-Nothing is compiled at import: kernels are built with ``nvcc`` on first use.
+Nothing is compiled at import: kernels are built with ``nvcc`` (the
+delineator with ``g++``) on first use.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Typed training/testing configuration (copy of the JAX package's
-``TrainConfig``; all reference defaults are preserved).
+"""Typed extraction and training/testing configuration (copies of the JAX
+package's ``ExtractionConfig`` and ``TrainConfig``; all reference defaults
+are preserved).
 
 Pure Python: the port keeps its own copy so that it imports nothing of the
 JAX package.  Unlike the JAX module, importing this one reads no
@@ -13,11 +14,77 @@ import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-__all__ = ["TrainConfig"]
+__all__ = ["ExtractionConfig", "TrainConfig", "default_extraction_config"]
 
 
 def _env(name: str, default: str) -> str:
     return os.environ.get(name, default)
+
+
+@dataclass(frozen=True)
+class ExtractionConfig:
+    """Signal-extraction parameters (reference: config.py:17-33)."""
+
+    path_data: str = field(default_factory=lambda: _env("DATA_FOLDER_PATH", "./data"))
+    track_names: Tuple[str, ...] = ("SNUADC/ECG_II",)
+    sampling_frequency: int = 500  # Hz
+    # HRV (RMSSD) threshold above which a sample is believed to contain PVCs.
+    pvc_threshold: float = 150.0
+    # std(sample)/n_peaks ratio threshold (reference default 0.05; the README's
+    # quoted 0.0335 is stale — remove_samples.py:8).
+    sd_threshold_ecg: float = 0.05
+    butter_order: int = 4
+    butter_hp_ecg: float = 1.0  # Hz, 0 disables
+    butter_lp_ecg: float = 30.0  # Hz, 0 disables
+    sample_length: int = 20  # seconds per window
+    hr_min: float = 30.0  # bpm
+    hr_max: float = 180.0  # bpm
+    # prefetch records on a background thread (the reference's mp.Pool
+    # preprocessing fan-out, data_extract_vitaldb.py:194-199)
+    parallel_preprocessing: bool = False
+    use_pickle: bool = True
+
+    # knobs of the JAX package (no reference counterpart)
+    precision: str = "float32"  # "float32" | "float64" (parity-check mode)
+    # "host": float64 per-window delineation by the C++ delineator
+    # (csrc/delineate.cpp, index-exact against "python"); "python": the
+    # pure-Python float64 delineator; "device": the batched float32
+    # delineator on the device (signals/delineate_device.py)
+    delineation_engine: str = "host"
+    # analysis-rate (500 -> 2000 Hz) resampler used by delineation
+    # (signals/delineate.py RESAMPLE_METHODS).  "linear" is the contract of
+    # all three engines; "fft"/"poly" are python-engine-only probes
+    delineation_resample: str = "linear"
+    # record filter ("host" | "device"): "host" runs the reference's scipy
+    # filtfilt chain in float64 math (cast to the working precision);
+    # "device" the batched float32 filtfilt on the device
+    # (signals/filters.py: butterworth_batched, filtfilt_fixed)
+    filter_backend: str = "host"
+    max_peaks_per_sample: int = 96  # fixed-shape padded peak buffer (20s @ 180bpm -> 60)
+    max_qrs_segments: int = 256  # fixed-shape QRS-candidate buffer
+
+    @property
+    def wave_sample_length(self) -> int:
+        return int(self.sampling_frequency * self.sample_length)
+
+    @property
+    def beat_length(self) -> int:
+        # 0.8 * (60/75) s slice per beat -> 320 samples @ 500 Hz
+        # (reference: median_sample.py:20-22, data_create_arrays.py:17-18)
+        return int(0.8 * (60.0 / 75.0) * self.sampling_frequency)
+
+    @property
+    def pre_r_length(self) -> int:
+        # 1/3 before the R peak (reference: median_sample.py:24)
+        return int(self.beat_length / 3)
+
+    @property
+    def post_r_length(self) -> int:
+        return self.beat_length - self.pre_r_length
+
+
+def default_extraction_config() -> ExtractionConfig:
+    return ExtractionConfig()
 
 
 @dataclass(frozen=True)

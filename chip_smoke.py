@@ -95,6 +95,26 @@ Phases, each of which fails the run:
    against the CPU's (rtol 1e-5 + atol 1e-7) and its final
    reconstruction against the CPU's (5e-5); then ``cli.analysis --search
    gp --search_calls 200`` with the LSTM run, timed.
+10. extraction, from synthetic one-hour ECG records to np_waves /
+   np_features / np_info: the float64 host engine on the JAX package's
+   goldens (waves 1e-6, windows and NaN patterns equal, features 1e-7: the
+   reference's ba-form scipy filter parts by ~1e-8 across scipy builds, and
+   the line prints it) and the device delineator on the golden windows'
+   frozen fiducials; ``cli.extract --cases 24 --duration 3600`` (float64,
+   the C++ delineator, 4,320 windows) and the same command again, which must
+   read its cache and write byte-identical arrays; the device engine
+   (``extract_cases(batched=True)``, float32, ``filter_backend="device"``,
+   chunks of 512) over the same records, a 160-bpm one (the full-width
+   re-run must happen) and one with 3 NaN gaps, against the host engine on
+   every record (kept windows equal, median beats within 1e-5), then again
+   under torch.profiler for the idle share; one chunk pass alone (kernels,
+   ms, peak memory); the device delineator against the C++ one on every
+   kept window of the host engine's cases (exact >= 0.995, PARITY.md) and
+   every device stage on two cases' windows on the card against the CPU
+   (R peaks, counts, QC mask and fiducials equal, medians 1e-6, features
+   1e-5).  Prints each engine's windows/s and wall s, the host and device
+   time of each stage, launches and host syncs per chunk, peak device
+   memory.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -1358,6 +1378,331 @@ def phase_reconstruction(torch, dev, lstm=None):
     return {"lstm_encoder": k3, "gbt_route": k2}
 
 
+# phase 10: extraction from synthetic one-hour records to the three arrays, through both engines
+EXTRACT_CASES, EXTRACT_S, EXTRACT_CHUNK = 24, 3600.0, 512
+EXTRACT_STAGES = ("filter", "segment", "upload", "rpeaks", "qc", "median", "pull", "delineation", "features",
+                  "write")
+ARRAYS = ("waves", "features", "info")
+
+
+def stage_times(stats) -> str:
+    """A run's host wall seconds by stage and, for the device stages, device
+    ms from CUDA events."""
+    host = ", ".join(f"{k} {stats.host_s[k]:.3f}" for k in EXTRACT_STAGES if k in stats.host_s)
+    device = ", ".join(f"{k} {stats.device_ms[k]:.3f}" for k in EXTRACT_STAGES if k in stats.device_ms)
+    return f"host s by stage: {host}; device ms by stage (CUDA events): {device or 'none'}"
+
+
+def traced_busy(torch, fn):
+    """``fn`` run under torch.profiler tracing kernels alone: its wall
+    seconds and the seconds in which at least one kernel or copy ran on the
+    card (the union of their intervals: two streams may overlap)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e6
+
+
+def kernel_launches(torch, fn) -> int:
+    """Kernels (and copies) that ``fn`` puts on the card, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def fiducial_agreement(host, device, n_peaks):
+    """(equal, compared) over the beats of each window: a fiducial agrees
+    where both are NaN or both the same index."""
+    equal = total = 0
+    for k in host:
+        valid = np.arange(host[k].shape[1])[None, :] < n_peaks[:, None]
+        a, b = host[k][valid], device[k][valid]
+        equal += int(((np.isnan(a) & np.isnan(b)) | (a == b)).sum())
+        total += int(valid.sum())
+    return equal, total
+
+
+#: the goldens' feature tolerance on the card's machine: the reference's float64
+#: filter is scipy's ba-form filtfilt, whose 4th-order 1 Hz high-pass is so
+#: ill-conditioned that two scipy builds part by ~1e-8 on the golden record
+#: (``filter_conditioning`` prints the ba form against the sos form), which
+#: moves the features by ~5e-9; the CPU tests, with the scipy the goldens
+#: were frozen with, hold 1e-9
+GOLDEN_FEATURES_ATOL = 1e-7
+
+
+def filter_conditioning() -> str:
+    """The float64 ba-form filtfilt of the golden record's 1 Hz high-pass
+    against the sos form of the same filter (equal in exact arithmetic)."""
+    import scipy
+    import scipy.signal
+
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+    from ae_waveforms_tpu_torch.signals.filters import zscore
+
+    x = zscore(synthetic_ecg_record(duration_s=85.0, seed=1234))
+    b, a = scipy.signal.butter(4, 1.0 / 250.0, "high")
+    sos = scipy.signal.butter(4, 1.0 / 250.0, "high", output="sos")
+    diff = float(np.abs(scipy.signal.filtfilt(b, a, x) - scipy.signal.sosfiltfilt(sos, x)).max())
+    return f"scipy {scipy.__version__}: the golden record's float64 high-pass, ba form against sos form, {diff:.3e}"
+
+
+def extraction_goldens(torch, dev) -> None:
+    """The float64 host engine on the card reproduces the JAX package's
+    frozen extraction (tests/goldens/extraction_golden.npz): waves within
+    1e-6, windows and NaN patterns equal, features within
+    ``GOLDEN_FEATURES_ATOL``; the device delineator reproduces its frozen
+    fiducials."""
+    from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+    from ae_waveforms_tpu_torch.core.schema import FIDUCIAL_NAMES
+    from ae_waveforms_tpu_torch.data.extract import extract_case
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+    from ae_waveforms_tpu_torch.signals.delineate_device import delineate_batch
+
+    z = np.load(ROOT / "tests" / "goldens" / "extraction_golden.npz")
+    cfg = ExtractionConfig(precision="float64", delineation_engine="host")
+    worst = {}
+    for prefix, cid, rec in (("", 1, synthetic_ecg_record(duration_s=85.0, seed=1234)),
+                             ("gap_", 2, synthetic_ecg_record(duration_s=85.0, seed=4321, nan_gaps=2))):
+        got = extract_case(cid, rec, cfg, device=dev)
+        want_f = z[prefix + "features"]
+        check(got.waves.shape == z[prefix + "waves"].shape and np.array_equal(got.indices, z[prefix + "indices"]),
+              f"golden {prefix or 'case'}: windows {got.indices} against {z[prefix + 'indices']}")
+        check(np.array_equal(np.isnan(got.features), np.isnan(want_f)), f"golden {prefix or 'case'}: NaN pattern")
+        worst[prefix or "case"] = (float(np.abs(got.waves - z[prefix + "waves"]).max()),
+                                   float(np.nanmax(np.abs(got.features - want_f))))
+        check(worst[prefix or "case"][0] <= 1e-6 and worst[prefix or "case"][1] <= GOLDEN_FEATURES_ATOL,
+              f"golden {prefix or 'case'}: waves, features off by {worst[prefix or 'case']}")
+    names = ["window"] + [f"patho_{m}_window" for m in ("absent_p", "biphasic_t", "fused_qrs", "tall_t")]
+    plists = [z["peaks"]] + [z[n.replace("_window", "_peaks")] for n in names[1:]]
+    peaks = np.full((len(names), 68), -1, np.int64)
+    for i, p in enumerate(plists):
+        peaks[i, : len(p)] = p
+    n_peaks = np.array([len(p) for p in plists])
+    fid = delineate_batch(torch.tensor(np.stack([z[n] for n in names]), dtype=torch.float32, device=dev),
+                          torch.tensor(peaks, device=dev), torch.tensor(n_peaks, device=dev))
+    for i, n in enumerate(names):
+        for k in FIDUCIAL_NAMES:
+            want = z[("fid_" if i == 0 else n.replace("_window", "_fid_")) + k]
+            got = fid[k][i, : n_peaks[i]].cpu().numpy()
+            check(np.array_equal(np.isnan(got), np.isnan(want)) and np.array_equal(got[~np.isnan(got)],
+                                                                                   want[~np.isnan(want)]),
+                  f"the device delineator on golden {n}: {k} {got} against {want}")
+    print(f"[extract] goldens on the card: the float64 host engine's case and gap case within (waves, features) "
+          f"{worst} (limits 1e-6, {GOLDEN_FEATURES_ATOL}; {filter_conditioning()}), windows and NaN patterns equal; "
+          f"the device delineator's fiducials on the {len(names)} golden windows equal the frozen ones")
+
+
+def card_against_cpu(torch, dev, windows: np.ndarray) -> None:
+    """Every device stage on the same windows on the card and on the CPU: R
+    peaks, peak counts, the QC mask and the fiducials equal, the median
+    beats within 1e-6 and the feature rows within 1e-5."""
+    from ae_waveforms_tpu_torch.data.extract import K_LIGHT
+    from ae_waveforms_tpu_torch.signals.delineate_device import delineate_batch
+    from ae_waveforms_tpu_torch.signals.features_device import feature_rows_batch
+    from ae_waveforms_tpu_torch.signals.median_beat import median_beat_batch
+    from ae_waveforms_tpu_torch.signals.qc import qc_mask
+    from ae_waveforms_tpu_torch.signals.rpeaks import LIGHT_CANDIDATES, find_rpeaks_batch
+
+    def stages(device):
+        x = torch.from_numpy(windows).to(device)
+        peaks, n = find_rpeaks_batch(x, 500, candidate_slots=LIGHT_CANDIDATES)
+        keep = qc_mask(x, peaks, n)
+        pk = peaks[:, :K_LIGHT]
+        med = median_beat_batch(x, pk, n)
+        fid = delineate_batch(x, pk, n)
+        rows = feature_rows_batch(x, pk, n, fid)
+        return [t.cpu().numpy() for t in (peaks, n, keep, med, torch.stack(list(fid.values())), rows)]
+
+    t0 = time.perf_counter()
+    card = stages(dev)
+    t1 = time.perf_counter()
+    cpu = stages("cpu")
+    t2 = time.perf_counter()
+    for name, a, b in zip(("R peaks", "peak counts", "QC mask", "fiducials"), card[:3] + card[4:5], cpu[:3] + cpu[4:5]):
+        same = (a == b) | (np.isnan(a) & np.isnan(b)) if a.dtype.kind == "f" else a == b
+        check(bool(same.all()), f"card against CPU: {name} differ on {int((~same).sum())} entries")
+    med_err = float(np.nanmax(np.abs(card[3] - cpu[3])))
+    row_err = float(np.nanmax(np.abs(card[5] - cpu[5])))
+    nan_same = np.array_equal(np.isnan(card[3]), np.isnan(cpu[3])) and np.array_equal(np.isnan(card[5]),
+                                                                                       np.isnan(cpu[5]))
+    check(nan_same and med_err <= 1e-6 and row_err <= 1e-5,
+          f"card against CPU: medians {med_err}, features {row_err}, NaN patterns equal {nan_same}")
+    print(f"[extract] card against CPU on {len(windows)} windows of two cases (K = {K_LIGHT}): R peaks, peak counts, "
+          f"QC mask ({int(card[2].sum())} kept) and {int((~np.isnan(card[4])).sum())} fiducials equal; medians within "
+          f"{med_err:.3e} (limit 1e-6), features within {row_err:.3e} (limit 1e-5); wall s card {t1 - t0:.3f}, CPU "
+          f"{t2 - t1:.3f}")
+
+
+def delineator_parity(torch, dev, windows_by_case) -> None:
+    """The device delineator against the C++ host one on every kept window
+    of the host engine's cases, the same R peaks for both (PARITY.md's
+    floors: exact >= 0.995)."""
+    from ae_waveforms_tpu_torch.ops.native_delineate import delineate_batch_native
+    from ae_waveforms_tpu_torch.signals.delineate_device import delineate_batch
+    from ae_waveforms_tpu_torch.signals.qc import qc_mask
+    from ae_waveforms_tpu_torch.signals.rpeaks import LIGHT_CANDIDATES, find_rpeaks_batch
+
+    equal = total = windows = 0
+    host_s = device_s = 0.0
+    for w in windows_by_case:
+        x = torch.from_numpy(w.astype(np.float32)).to(dev)
+        peaks, n = find_rpeaks_batch(x, 500, candidate_slots=LIGHT_CANDIDATES)
+        keep = qc_mask(x, peaks, n).cpu().numpy()
+        peaks, n = peaks[keep], n[keep]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fid = {k: v.cpu().numpy() for k, v in delineate_batch(x[keep], peaks, n).items()}
+        t1 = time.perf_counter()
+        host = delineate_batch_native(w[keep], peaks.cpu().numpy(), n.cpu().numpy())
+        t2 = time.perf_counter()
+        e, t = fiducial_agreement(host, fid, n.cpu().numpy())
+        equal, total, windows = equal + e, total + t, windows + int(keep.sum())
+        host_s, device_s = host_s + t2 - t1, device_s + t1 - t0
+    rate = equal / total
+    print(f"[extract] device delineator against the C++ host one on all {windows} kept windows of the host engine's "
+          f"cases, the same R peaks: {equal} of {total} fiducials exact ({rate:.5f}, floor 0.995); C++ "
+          f"{host_s / windows * 1e3:.4f} ms per window ({os.cpu_count()} CPUs), device {device_s / windows * 1e3:.4f}")
+    check(rate >= 0.995, f"device against host delineator: exact {rate:.5f} under the 0.995 floor")
+
+
+def phase_extract(torch, dev, work=None):
+    """Phase 10: extraction at the size of a real run, through both engines.
+    Returns the three kernels' launches in it (none is on this path)."""
+    from ae_waveforms_tpu_torch.cli import extract as cli_extract
+    from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+    from ae_waveforms_tpu_torch.data import extract as ex
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
+    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+
+    counters = (encode_fused, route_rows, left_histograms_fixed)
+    before = [c.launches for c in counters]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[extract] every figure of phase 10 is from {smi}")
+    extraction_goldens(torch, dev)
+    with workdir(work) as work:
+        out = os.path.join(work, "extract")
+        argv = ["--out", out, "--cases", str(EXTRACT_CASES), "--duration", str(int(EXTRACT_S))]
+
+        # the host engine through the CLI's defaults (float64, engine host), then again from its cache
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        host = cli_extract.main(argv)
+        host_s = time.perf_counter() - t0
+        host_peak = torch.cuda.max_memory_allocated() / 2**20
+        hs = host["stats"]
+        n_host = sum(r.n_windows_raw for r in host["results"])
+        written = {n: Path(out, f"np_{n}.npy").read_bytes() for n in ARRAYS}
+        print(f"[extract] host engine: cli.extract {' '.join(argv[2:])} (float64, C++ delineator): {n_host} windows, "
+              f"{sum(len(r.waves) for r in host['results'])} kept, in {host_s:.3f} s wall (record synthesis "
+              f"included), {n_host / host_s:.1f} windows/s; {hs.passes} device passes (one a case), {hs.syncs} host "
+              f"syncs; peak device memory {host_peak:.1f} MiB; {stage_times(hs)}")
+        t0 = time.perf_counter()
+        again = cli_extract.main(argv)
+        again_s = time.perf_counter() - t0
+        same = {n: Path(out, f"np_{n}.npy").read_bytes() == written[n] for n in ARRAYS}
+        print(f"[extract] the same command again: {again_s:.3f} s wall, {again['stats'].passes} device passes, arrays "
+              f"byte-identical {same}")
+        check(all(same.values()) and again["stats"].passes == 0, f"the cached re-run: {same}, "
+              f"{again['stats'].passes} passes")
+
+        # the device engine over the same records and two more, made first (set-up, not timed with the run)
+        t0 = time.perf_counter()
+        records = {cid: synthetic_ecg_record(duration_s=EXTRACT_S, seed=cid) for cid in range(1, EXTRACT_CASES + 1)}
+        records[EXTRACT_CASES + 1] = synthetic_ecg_record(duration_s=EXTRACT_S, seed=EXTRACT_CASES + 1, hr_bpm=160.0)
+        records[EXTRACT_CASES + 2] = synthetic_ecg_record(duration_s=EXTRACT_S, seed=EXTRACT_CASES + 2, nan_gaps=3)
+        synth_s = time.perf_counter() - t0
+        ids = list(records)
+        cfg = ExtractionConfig(precision="float32", delineation_engine="device", filter_backend="device")
+
+        def device_run(stats):
+            return ex.extract_cases(ids, records.__getitem__, cfg, batched=True, windows_per_batch=EXTRACT_CHUNK,
+                                    device=dev, stats=stats)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ds = ex.ExtractionStats()
+        t0 = time.perf_counter()
+        dev_results = device_run(ds)
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        ds.finish()
+        dev_peak = torch.cuda.max_memory_allocated() / 2**20
+        n_dev = sum(r.n_windows_raw for r in dev_results)
+        chunks = ds.passes - ds.reruns
+        print(f"[extract] device engine: extract_cases(batched, {EXTRACT_CHUNK} windows a chunk, float32, "
+              f"filter_backend device) over {len(ids)} records ({synth_s:.3f} s to make them, not counted): {n_dev} "
+              f"windows in {dev_s:.3f} s wall, {n_dev / dev_s:.1f} windows/s; {chunks} chunks, {ds.reruns} re-run at "
+              f"the full width, {ds.syncs} host syncs ({ds.syncs / chunks:.3f} a chunk); peak device memory "
+              f"{dev_peak:.1f} MiB; {stage_times(ds)}")
+        check(ds.reruns >= 1, "no chunk was re-run at the full beat width")
+        prof_s, busy = traced_busy(torch, lambda: device_run(None))
+        print(f"[extract] device engine again under torch.profiler (kernels alone): {prof_s:.3f} s wall, the card "
+              f"busy {busy:.3f} s, idle share {1 - busy / prof_s:.3f}")
+
+        # one chunk's pass on its own: launches, device time, peak memory
+        rec0 = ex.preprocess_record(records[1], cfg, dev)
+        win = np.concatenate([ex._windows(rec0, cfg)[0]] * 3)[:EXTRACT_CHUNK].astype(np.float32)
+        x = torch.from_numpy(win).to(dev)
+        slots = ex._candidate_slots(win)
+        launches = kernel_launches(torch, lambda: ex._window_pass(x, cfg, slots, ex.K_LIGHT, None, True))
+        rpeak_launches = kernel_launches(torch, lambda: ex.find_rpeaks_batch(x, 500, candidate_slots=slots))
+        torch.cuda.reset_peak_memory_stats()
+        pass_ms = event_ms(torch, lambda: ex._window_pass(x, cfg, slots, ex.K_LIGHT, None, True), 3)
+        pass_peak = torch.cuda.max_memory_allocated() / 2**20
+        print(f"[extract] one chunk pass of {EXTRACT_CHUNK} windows at K = {ex.K_LIGHT}: {launches} kernels and copies "
+              f"({rpeak_launches} of them the R peaks', their acceptance loop 128 x 4), {pass_ms:.3f} ms (CUDA "
+              f"events, launch gaps included), peak device memory {pass_peak:.1f} MiB")
+
+        # the device engine against the host engine on every window
+        host_by = {r.case_id: r for r in host["results"]}
+        host_cfg = ExtractionConfig(precision="float64", delineation_engine="host")
+        for cid in ids[EXTRACT_CASES:]:
+            host_by[cid] = ex.extract_case(cid, records[cid], host_cfg, device=dev)
+        wave_err, feat_rows = 0.0, 0
+        for r in dev_results:
+            h = host_by[r.case_id]
+            check(np.array_equal(r.indices, h.indices), f"case {r.case_id}: the device engine keeps windows "
+                  f"{sorted(set(r.indices) ^ set(h.indices))} that the host engine does not, or the reverse")
+            wave_err = max(wave_err, float(np.abs(r.waves - h.waves).max(initial=0.0)))
+            d = np.abs(r.features - h.features)
+            feat_rows += int((np.nan_to_num(d) > 1e-3).any(axis=1).sum() + (np.isnan(r.features) != np.isnan(
+                h.features)).any(axis=1).sum())
+        kept = sum(len(r.waves) for r in dev_results)
+        print(f"[extract] device engine against host engine on all {len(ids)} records: kept windows equal "
+              f"({kept}), median beats within {wave_err:.3e} (limit 1e-5: the float32 device filter against scipy's "
+              f"float64), {feat_rows} feature rows apart by more than 1e-3 or in their NaN pattern")
+        check(wave_err <= 1e-5, f"device engine against host engine: median beats off by {wave_err}")
+
+        windows_by_case = [ex._windows(ex.preprocess_record(records[cid], host_cfg), host_cfg)[0]
+                           for cid in range(1, EXTRACT_CASES + 1)]
+        delineator_parity(torch, dev, windows_by_case)
+        card_against_cpu(torch, dev, np.concatenate(windows_by_case[:2]).astype(np.float32))
+    launched = [c.launches - b for c, b in zip(counters, before)]
+    print(f"[extract] lstm_encoder, gbt_route, gbt_hist launches in phase 10: {launched} (extraction reaches none)")
+    return launched
+
+
 def main() -> int:
     import torch
 
@@ -1373,8 +1718,9 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] {len(_build.KERNELS)} kernels built in {time.perf_counter() - t0:.2f} s")
-    for name in _build.KERNELS:
+    print(f"[build] {len(_build.KERNELS)} CUDA kernels and {len(_build.HOST_SOURCES)} host library built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name in [*_build.KERNELS, *_build.HOST_SOURCES]:
         log = _build.BUILD_DIR / f"{name}.log"
         if log.is_file():
             print(f"[build] {name}: " + " | ".join(line.strip() for line in log.read_text().splitlines() if line.strip()))
@@ -1395,6 +1741,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as work:  # phase 8's data and LSTM run, for phase 9
         train_launches, lstm = timed("8 AE train and test", phase_train, torch, dev, work)
         study_launches = timed("9 conv AE and reconstruction study", phase_reconstruction, torch, dev, lstm)
+        timed("10 extraction", phase_extract, torch, dev, work)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",

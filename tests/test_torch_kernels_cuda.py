@@ -7,6 +7,7 @@ and skips with a reason when none is.  Run on a machine with an NVIDIA GPU:
 """
 
 import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -480,3 +481,111 @@ def test_wrappers_raise_on_unsupported_input():
         left_histograms_fixed(z, g, g, z, z[:, 0].contiguous(), half=1, n_bins=16384)
     with pytest.raises(ValueError):  # packed bins of another pool
         left_histograms_fixed(z, g, g, z, z[:, 0].contiguous(), half=1, n_bins=64, packed=pack_bins(z[:, :2], 64))
+
+
+# extraction: every device stage on the card against the port's CPU, with
+# chip_smoke.py phase 10's tolerances (R peaks, peak counts, the QC mask and
+# the fiducials exact; median beats 1e-6; feature rows 1e-5; the device
+# filtfilt 1e-6), and the float64 host engine on the card against the goldens
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "goldens", "extraction_golden.npz")
+
+
+def _extraction_windows():
+    """The golden windows and those of a normal and a 150-bpm record, float32."""
+    from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+    from ae_waveforms_tpu_torch.data.extract import _windows, preprocess_record
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+
+    z = np.load(GOLDEN)
+    wins = [z["window"]] + [z[f"patho_{m}_window"] for m in ("absent_p", "biphasic_t", "fused_qrs", "tall_t")]
+    cfg = ExtractionConfig(precision="float64")
+    for kw in (dict(seed=21), dict(seed=22, hr_bpm=150.0)):
+        wins += list(_windows(preprocess_record(synthetic_ecg_record(duration_s=125.0, **kw), cfg), cfg)[0])
+    return np.stack(wins).astype(np.float32)
+
+
+def _stages(x):
+    from ae_waveforms_tpu_torch.signals.delineate_device import delineate_batch
+    from ae_waveforms_tpu_torch.signals.features_device import feature_rows_batch
+    from ae_waveforms_tpu_torch.signals.median_beat import median_beat_batch
+    from ae_waveforms_tpu_torch.signals.qc import qc_mask
+    from ae_waveforms_tpu_torch.signals.rpeaks import find_rpeaks_batch
+
+    peaks, n = find_rpeaks_batch(x, 500)
+    fid = delineate_batch(x, peaks, n)
+    out = dict(peaks=peaks, n=n, keep=qc_mask(x, peaks, n), median=median_beat_batch(x, peaks, n),
+               fid=torch.stack(list(fid.values())), rows=feature_rows_batch(x, peaks, n, fid))
+    return {k: v.cpu() for k, v in out.items()}
+
+
+def test_extraction_stages_match_the_cpu():
+    dev = _card()
+    x = _extraction_windows()
+    card, cpu = _stages(torch.from_numpy(x).to(dev)), _stages(torch.from_numpy(x))
+    for k in ("peaks", "n", "keep"):
+        assert torch.equal(card[k], cpu[k]), k
+    torch.testing.assert_close(card["fid"], cpu["fid"], rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(card["median"], cpu["median"], rtol=0, atol=1e-6, equal_nan=True)
+    torch.testing.assert_close(card["rows"], cpu["rows"], rtol=0, atol=1e-5, equal_nan=True)
+    assert card["keep"].any() and (card["n"] > 48).any()
+
+
+def test_device_filtfilt_matches_the_cpu():
+    from ae_waveforms_tpu_torch.signals.filters import butterworth, butterworth_batched
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    t = np.arange(60000) / 500.0
+    x = np.sin(2 * np.pi * 1.3 * t) + 0.4 * np.sin(2 * np.pi * 0.2 * t) + 0.3 * rng.standard_normal(len(t))
+    x[20000:20100] = np.nan
+    x[40000:40005] = np.nan
+    x[40010:40500] = np.nan  # a 5-sample segment passes through
+    for btype, cut in (("high", 1.0), ("low", 30.0)):
+        card = butterworth(x, btype, cut, 500, 4, precision="float32", device=dev)
+        cpu = butterworth(x, btype, cut, 500, 4, precision="float32", device="cpu")
+        np.testing.assert_allclose(card, cpu, rtol=0, atol=1e-6, equal_nan=True)
+    card = butterworth_batched([x, x[:7000]], 1.0, 30.0, 500, 4, device=dev)
+    cpu = butterworth_batched([x, x[:7000]], 1.0, 30.0, 500, 4, device="cpu")
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-6, equal_nan=True)
+
+
+def test_host_engine_on_the_card_matches_goldens():
+    """Features within 1e-7, not the CPU tests' 1e-9: the reference's
+    float64 ba-form filtfilt is ill-conditioned enough (the 1 Hz high-pass)
+    that another scipy build parts from the one the goldens were frozen with
+    by ~1e-8 on this record (chip_smoke.py's ``filter_conditioning``)."""
+    from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+    from ae_waveforms_tpu_torch.data.extract import extract_case
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+
+    dev = _card()
+    z = np.load(GOLDEN)
+    cfg = ExtractionConfig(precision="float64", delineation_engine="host")
+    for prefix, cid, kw in (("", 1, dict(seed=1234)), ("gap_", 2, dict(seed=4321, nan_gaps=2))):
+        got = extract_case(cid, synthetic_ecg_record(duration_s=85.0, **kw), cfg, device=dev)
+        np.testing.assert_allclose(got.waves, z[prefix + "waves"], rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got.features, z[prefix + "features"], rtol=0, atol=1e-7, equal_nan=True)
+        np.testing.assert_array_equal(got.indices, z[prefix + "indices"])
+
+
+def test_device_engine_streams_with_the_full_width_rerun_on_the_card():
+    from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+    from ae_waveforms_tpu_torch.data.extract import ExtractionStats, extract_cases
+    from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
+
+    dev = _card()
+    cfg = ExtractionConfig(precision="float32", delineation_engine="device", filter_backend="device")
+
+    def loader(cid):
+        return synthetic_ecg_record(duration_s=65.0, seed=cid, hr_bpm=160.0 if cid == 2 else 72.0)
+
+    per_case = extract_cases([1, 2, 3], loader, cfg, device=dev)
+    stats = ExtractionStats()
+    streamed = extract_cases([1, 2, 3], loader, cfg, batched=True, windows_per_batch=4, device=dev, stats=stats)
+    assert stats.reruns >= 1
+    for a, b in zip(per_case, streamed):
+        np.testing.assert_array_equal(a.indices, b.indices)
+        np.testing.assert_array_equal(a.waves, b.waves)
+        np.testing.assert_array_equal(a.features, b.features)
