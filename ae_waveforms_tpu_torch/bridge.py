@@ -5,22 +5,29 @@ mapping is by name and bit-exact both ways: the LSTM autoencoder's
 ``enc1``..``dec3`` with ``w_ih``, ``w_hh``, ``b_ih``, ``b_hh`` and ``out``
 with ``w``, ``b``; the conv autoencoder's ``e1``..``e4``, ``e_lat``,
 ``d_lat``, ``d1``..``d4``, each with ``w`` ((out, in, K) for a conv, (in,
-out, K) for a transposed conv) and ``b``.
+out, K) for a transposed conv) and ``b``; the LSTM classifier's ``lstm1``..
+``lstm3``, ``attn``, ``fc1``, ``fc2``, ``bn_gamma``, ``bn_beta`` and its
+BatchNorm state ``bn_mean``, ``bn_var``; the MLP head's list of layers,
+each ``w`` (in, out) and ``b``.  A multi-config tree is any of these with a
+leading config axis on every leaf.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
+import torch
 
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.classify.gbt import GBTClassifier, GBTEnsemble
 from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
+from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 
 __all__ = ["lstm_ae_params_from_numpy", "lstm_ae_params_to_numpy", "conv_ae_params_from_numpy",
-           "conv_ae_params_to_numpy", "gbt_from_numpy"]
+           "conv_ae_params_to_numpy", "gbt_from_numpy", "classifier_from_numpy", "classifier_to_numpy",
+           "tree_from_numpy", "tree_to_numpy"]
 
 
 def lstm_ae_params_from_numpy(tree: Dict, device=None) -> LSTMAutoencoder:
@@ -73,3 +80,40 @@ def gbt_from_numpy(feat, thresh, is_split, leaf, lr, edges, params: Dict, device
         lr=np.array(lr, np.float32),
     )
     return GBTClassifier(**params, device=device).load_ensemble(ens, np.array(edges, np.float32))
+
+
+def classifier_from_numpy(params: Dict, state: Dict, device=None) -> LSTMClassifier:
+    """An ``LSTMClassifier`` holding the JAX parameter dict's weights and
+    BatchNorm state, on ``device`` (the first CUDA device unless named), in
+    eval mode; the widths are read from the arrays' shapes."""
+    hidden = (np.shape(params["lstm1"]["w_hh"])[1], np.shape(params["lstm2"]["w_hh"])[1])
+    model = LSTMClassifier(hidden, device=resolve_device(device))
+    model.load_jax_tree(params, state)
+    return model.eval()
+
+
+def classifier_to_numpy(model: LSTMClassifier) -> Tuple[Dict, Dict[str, np.ndarray]]:
+    """The module's (params, BatchNorm state) as the JAX dicts of numpy
+    arrays."""
+    return tree_to_numpy(model.jax_tree()), tree_to_numpy(model.state_tree())
+
+
+def tree_from_numpy(tree, device=None):
+    """A tree of arrays (dicts and lists: the MLP head's params, or any tree
+    with a leading config axis on its leaves) as the same tree of tensors on
+    ``device`` (the first CUDA device unless named)."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: tree_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_from_numpy(v, device) for v in tree]
+    return torch.tensor(np.asarray(tree), device=device)
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as the same tree of numpy arrays."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_to_numpy(v) for v in tree]
+    return tree.detach().cpu().numpy().copy()

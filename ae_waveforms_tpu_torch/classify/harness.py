@@ -479,8 +479,9 @@ def ppv_analysis(
 def evaluate_combined_model_auc(X: np.ndarray, y: np.ndarray, best_params: Dict, seed: int,
                                 device=None) -> float:
     """AUC of a combined-feature model on a stratified 80/20 split
-    (main_ml_classify.py:66-75 capability); needs sklearn for the split."""
-    from sklearn.model_selection import train_test_split
+    (main_ml_classify.py:66-75 capability), the rows sklearn's
+    ``train_test_split`` picks (``classify.split``)."""
+    from ae_waveforms_tpu_torch.classify.split import train_test_split
 
     Xtr, Xva, ytr, yva = train_test_split(X, y, test_size=0.2, random_state=seed, stratify=y)
     m = GBTClassifier(**best_params, random_state=seed, device=device)

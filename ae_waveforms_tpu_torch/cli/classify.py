@@ -7,14 +7,16 @@ One entry point with a ``task`` selector:
   python -m ae_waveforms_tpu_torch.cli.classify latent   --data DIR [...]
   python -m ae_waveforms_tpu_torch.cli.classify features --data DIR [...]
   python -m ae_waveforms_tpu_torch.cli.classify ppv      --data DIR [...]
+  python -m ae_waveforms_tpu_torch.cli.classify deep     --data DIR [...]
 
 Inputs follow the reference's file contracts: ``controls.csv`` /
 ``<condition>.csv`` id lists (second column), ``np_info.npy`` plus either
 ``np_latent_spaces_mimiciv.npy`` (latent and ppv tasks) or precomputed
-feature .npy pairs (features task).  The GBT runs on ``--device`` (the
-first CUDA device unless named; ``--device cpu`` runs the plain versions).
-The ``deep`` task and ``--n_devices`` belong to later slices of the port
-and raise ``NotImplementedError``.
+feature .npy pairs (features task), ``np_waves.npy`` (the ``deep`` task:
+the LSTM classifier on raw beats, ``classify/dl.py``).  Every model runs on
+``--device`` (the first CUDA device unless named; ``--device cpu`` runs the
+plain versions).  ``--n_devices`` belongs to a later slice of the port and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -100,10 +102,20 @@ def run_features(args):
 
 
 def run_deep(args):
-    raise NotImplementedError(
-        "the deep task (the LSTM classifier) is not ported yet: it is the DL-classifier slice "
-        "(ROADMAP.md, queue 1, item 9); run it with ae_waveforms_tpu.cli.classify"
-    )
+    """The LSTM classifier's size x seed sweep on raw beats: the first
+    12,000 beats of each class (main_dl_classify.py), results under
+    ``{data}/{epochs}_{sick_file stem}``."""
+    from ae_waveforms_tpu_torch.classify.dl import DL_SIZES, dl_size_seed_sweep
+
+    ids = _load_info_ids(args.data)
+    waves = np.load(os.path.join(args.data, "np_waves.npy"), allow_pickle=True)
+    control = select_by_ids(ids, waves, _load_ids(args.data, args.control_file))[:12000]
+    sick = select_by_ids(ids, waves, _load_ids(args.data, args.sick_file))[:12000]
+    out = os.path.join(args.data, f"{args.epochs}_{os.path.splitext(args.sick_file)[0]}")
+    return dl_size_seed_sweep(control, sick, sizes=args.sizes or DL_SIZES, n_seeds=args.seeds,
+                              num_epochs=args.epochs, out_dir=out, save_models=args.save_models,
+                              vectorized=args.vectorized, seed_chunk=args.seed_chunk,
+                              remat_chunk=args.remat_chunk or None, device=args.device)
 
 
 def main(argv=None):
@@ -123,13 +135,16 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=153)
     p.add_argument("--save_models", action="store_true")
     p.add_argument("--vectorized", action="store_true",
-                   help="fit all seeds of a size (and chunks of grid-search candidates) together")
+                   help="fit all seeds of a size (and chunks of grid-search candidates) together; deep task: "
+                        "--seed_chunk seeds at a time")
     p.add_argument("--n_devices", type=int, default=0,
                    help="shard the seed axis over n devices (not ported yet; must be 0)")
     p.add_argument("--seed_chunk", type=int, default=25, help="deep task: seeds trained together")
-    p.add_argument("--remat_chunk", type=int, default=20, help="deep task: chunked LSTM remat length")
+    p.add_argument("--remat_chunk", type=int, default=20,
+                   help="deep task: time steps an LSTM recomputes at once in the backward (identical gradients, "
+                        "less memory); 0 = off")
     p.add_argument("--device", default=None,
-                   help="torch device of the GBT (default: the first CUDA device; 'cpu' runs the plain versions)")
+                   help="torch device (default: the first CUDA device; 'cpu' runs the plain versions)")
     args = p.parse_args(argv)
     if args.n_devices:
         raise NotImplementedError(

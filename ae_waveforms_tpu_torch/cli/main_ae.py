@@ -11,9 +11,14 @@ flags (``--train_shuffle``, ``--val_shuffle``, ``--plotting``,
 plus ``--device`` (the first CUDA device unless named; ``cpu`` runs the
 plain versions).  Importable as a library (``autoencoder(custom_args)``).  Seeding covers
 numpy's legacy stream (splits, batch order) here and the torch generators
-(init, dropout) in ``main_train``.  Multi-config training and several
-devices belong to later slices of the port; their flags raise
-``NotImplementedError``.
+(init, dropout) in ``main_train``.
+
+In train mode, ``--seeds``, ``--lr_sweep`` and ``--latent_sizes`` train the
+cross of their values together (``train/multi.py``), one run dir a
+configuration and one group a latent size; ``--per_config_splits``,
+``--multi_checkpoint_every`` and ``--multi_resume_dir`` go with them.
+Several devices (``--n_devices``, ``--model_parallel`` above 1) belong to
+a later slice of the port and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -62,21 +67,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="devices to train on (0 = one; above 1 is not ported yet)")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
                    help="size of the model-parallel axis (above 1 is not ported yet)")
-    # multi-config training: the JAX package's flags, not ported yet
-    p.add_argument("--seeds", type=str, default="", help="multi-config training (not ported yet)")
-    p.add_argument("--lr_sweep", type=str, default="", help="multi-config training (not ported yet)")
-    p.add_argument("--latent_sizes", type=str, default="", help="multi-config training (not ported yet)")
+    # multi-config training: S configurations of this architecture trained together (train/multi.py)
+    p.add_argument("--seeds", type=str, default="",
+                   help="comma-separated seeds; train mode only: trained together, one run dir per seed")
+    p.add_argument("--lr_sweep", type=str, default="",
+                   help="comma-separated learning-rate multipliers; train mode only: crossed with --seeds "
+                        "(or --seed), one run dir per (seed, multiplier) pair")
+    p.add_argument("--latent_sizes", type=str, default="",
+                   help="comma-separated latent sizes; train mode only: crossed with --seeds/--lr_sweep, one "
+                        "group per latent size")
     p.add_argument("--per_config_splits", type=bool, default=False,
-                   help="multi-config training (not ported yet)")
-    p.add_argument("--multi_checkpoint_every", type=int, default=0, help="multi-config training (not ported yet)")
-    p.add_argument("--multi_resume_dir", type=str, default="", help="multi-config training (not ported yet)")
+                   help="multi-config runs: redraw the patient split under each config's seed instead of sharing "
+                        "one cfg.seed split (type=bool, as the JAX CLI: any non-empty value is true)")
+    p.add_argument("--multi_checkpoint_every", type=int, default=0,
+                   help="multi-config runs: write the full stacked train state to results_dir every K dispatches "
+                        "(0 = off)")
+    p.add_argument("--multi_resume_dir", type=str, default="",
+                   help="multi-config runs: resume from a checkpoint that --multi_checkpoint_every wrote")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA device; 'cpu' runs the plain versions)")
     return p
-
-
-MULTI_CONFIG_FLAGS = ("seeds", "lr_sweep", "latent_sizes", "per_config_splits", "multi_checkpoint_every",
-                      "multi_resume_dir")
 
 
 def config_from_args(args: argparse.Namespace) -> TrainConfig:
@@ -119,18 +129,14 @@ def autoencoder(custom_args: Optional[List[str]] = None):
     from ae_waveforms_tpu_torch.train.loop import require_single_device
 
     args = build_parser().parse_args(custom_args)
-    given = [f"--{name}" for name in MULTI_CONFIG_FLAGS if getattr(args, name)]
-    if given:
-        raise NotImplementedError(
-            f"{', '.join(given)}: multi-config training is not ported yet (ROADMAP.md, queue 1, item 8); "
-            "run it with ae_waveforms_tpu.cli.main_ae"
-        )
     cfg = config_from_args(args)
     require_single_device(cfg)
     np.random.seed(cfg.seed)
 
     mode = str(cfg.mode).lower()
     if mode == "train":
+        if args.seeds.strip() or args.lr_sweep.strip() or args.latent_sizes.strip():
+            return _train_multi(args, cfg)
         from ae_waveforms_tpu_torch.train.loop import main_train
 
         output_dir = main_train(cfg, device=args.device)
@@ -143,6 +149,35 @@ def autoencoder(custom_args: Optional[List[str]] = None):
             cfg, device=args.device)
         return test_loss, rmse, rmse_samples, prd, prd_samples, test_pred, test_true, test_c
     raise ValueError(f"unknown mode {cfg.mode!r}")
+
+
+def _train_multi(args, cfg: TrainConfig) -> List[str]:
+    """The cross of --seeds x --lr_sweep (x --latent_sizes, one group a
+    latent size) trained together; returns the run dirs."""
+    from ae_waveforms_tpu_torch.train.multi import train_ae_multi, train_ae_multi_grouped
+
+    seeds = [int(s) for s in args.seeds.split(",") if s.strip()] if args.seeds.strip() else [cfg.seed]
+    mults = [float(m) for m in args.lr_sweep.split(",") if m.strip()] if args.lr_sweep.strip() else [1.0]
+    kw = dict(per_config_splits=bool(args.per_config_splits), save_runs=True, device=args.device)
+    if args.multi_checkpoint_every:
+        kw.update(checkpoint_every=args.multi_checkpoint_every, results_dir=cfg.results_dir)
+    if args.multi_resume_dir.strip():
+        kw.update(resume_dir=args.multi_resume_dir.strip())
+    if args.latent_sizes.strip():
+        latents = [int(d) for d in args.latent_sizes.split(",") if d.strip()]
+        by_latent = train_ae_multi_grouped(cfg, [(d, s, m) for d in latents for s in seeds for m in mults], **kw)
+        run_dirs = []
+        for d in latents:
+            res = by_latent[d]
+            for s, m, rd, v in zip(res.seeds, res.lr_multipliers, res.run_dirs, res.best_val):
+                print(f"Training done (latent {d}, seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {rd}")
+            run_dirs.extend(res.run_dirs)
+        return run_dirs
+    res = train_ae_multi(cfg, [s for s in seeds for _ in mults], lr_multipliers=[m for _ in seeds for m in mults],
+                         **kw)
+    for s, m, d, v in zip(res.seeds, res.lr_multipliers, res.run_dirs, res.best_val):
+        print(f"Training done (seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {d}")
+    return res.run_dirs
 
 
 if __name__ == "__main__":

@@ -31,8 +31,8 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 __all__ = [
-    "lstm_init", "lstm_cell", "lstm_apply", "linear_init", "linear_apply", "conv1d_init", "conv1d_apply",
-    "conv1d_transpose_apply", "avg_pool1d", "upsample_linear", "copy_tree_", "dropout",
+    "lstm_init", "lstm_cell", "lstm_apply", "lstm_forward", "linear_init", "linear_apply", "conv1d_init",
+    "conv1d_apply", "conv1d_transpose_apply", "avg_pool1d", "upsample_linear", "copy_tree_", "dropout",
 ]
 
 Params = Dict[str, torch.Tensor]
@@ -78,6 +78,20 @@ def lstm_apply(params: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
         h, c = lstm_cell(gates_x[:, t], h, c, w_hh_t)
         hs.append(h)
     return torch.stack(hs, dim=1), h
+
+
+def lstm_forward(lstm: torch.nn.LSTM, x: torch.Tensor):
+    """``lstm(x)`` of a one-layer, batch-first ``nn.LSTM``: (outputs, (h,
+    c)), its weights read from the module's attributes as they stand.
+    Under ``torch.func.functional_call`` those are the tensors swapped in,
+    which ``nn.LSTM.forward`` would first copy into a flat buffer of its own
+    (``flatten_parameters``) on every call; here they go to the LSTM as they
+    are (on the card, in place where they are one flat buffer in cuDNN's
+    order, as the module's own parameters are after ``.to``)."""
+    weights = [getattr(lstm, name) for name in lstm._flat_weights_names]
+    h0 = x.new_zeros((1, x.shape[0], lstm.hidden_size))
+    out, h, c = torch.lstm(x, (h0, h0), weights, lstm.bias, 1, 0.0, lstm.training, False, True)
+    return out, (h, c)
 
 
 def linear_init(generator: torch.Generator, in_features: int, out_features: int) -> Params:

@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
-from ae_waveforms_tpu_torch.models.layers import copy_tree_, dropout, linear_init, lstm_init
+from ae_waveforms_tpu_torch.models.layers import copy_tree_, dropout, linear_init, lstm_forward, lstm_init
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
 __all__ = ["LSTMAutoencoder"]
@@ -85,11 +85,11 @@ class LSTMAutoencoder(nn.Module):
         if not self.training:
             return encode_fused(self.jax_tree(), x)
         with cudnn_fp32():
-            h, _ = self.enc1(x)
+            h, _ = lstm_forward(self.enc1, x)
             h = dropout(h, rate, generator, True)
-            h, _ = self.enc2(h)
+            h, _ = lstm_forward(self.enc2, h)
             h = dropout(h, rate, generator, True)
-            _, (z, _) = self.enc3(h)
+            _, (z, _) = lstm_forward(self.enc3, h)
         return z[0]
 
     def decode(self, z: torch.Tensor, seq_len: int, rate: float = 0.0,
@@ -99,11 +99,11 @@ class LSTMAutoencoder(nn.Module):
         found them; in train mode with dropout ``rate`` after dec1 and dec2."""
         h = z[:, None, :].expand(-1, seq_len, -1).contiguous()
         with cudnn_fp32():
-            h, _ = self.dec1(h)
+            h, _ = lstm_forward(self.dec1, h)
             h = dropout(h, rate, generator, self.training)
-            h, _ = self.dec2(h)
+            h, _ = lstm_forward(self.dec2, h)
             h = dropout(h, rate, generator, self.training)
-            h, _ = self.dec3(h)
+            h, _ = lstm_forward(self.dec3, h)
         # the 1 x 1 output layer as a multiply-add: no matmul, so no TF32
         return h * self.out.weight[:, 0] + self.out.bias
 

@@ -31,7 +31,10 @@ __all__ = ["Adam", "Adagrad", "make_optimizer"]
 
 class Adam(torch.optim.Optimizer):
     """optax's ``add_decayed_weights`` -> ``scale_by_adam`` -> learning rate,
-    in optax's order of operations, over all of a group's tensors at once."""
+    in optax's order of operations, over every group's tensors at once (one
+    chain of foreach ops, each group's betas, eps, bias corrections and
+    learning rate as per-tensor scalars: the stacked trainers hold one
+    group a config)."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
@@ -42,32 +45,40 @@ class Adam(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
+        ps, gs, sc = [], [], {k: [] for k in ("c1", "b1", "c2", "b2", "bias1", "bias2", "eps", "neg_lr")}
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            ps = [p for p in group["params"] if p.grad is not None]
-            if not ps:
+            gps = [p for p in group["params"] if p.grad is not None]
+            if not gps:
                 continue
-            gs = [p.grad for p in ps]
+            ggs = [p.grad for p in gps]
             if group["weight_decay"]:
-                gs = torch._foreach_add(gs, torch._foreach_mul(ps, group["weight_decay"]))
-            for p in ps:
+                ggs = torch._foreach_add(ggs, torch._foreach_mul(gps, group["weight_decay"]))
+            for p in gps:
                 state = self.state[p]
                 if not state:
                     state["step"] = 0
                     state["mu"] = torch.zeros_like(p)
                     state["nu"] = torch.zeros_like(p)
                 state["step"] += 1
-            mu = [self.state[p]["mu"] for p in ps]
-            nu = [self.state[p]["nu"] for p in ps]
-            torch._foreach_copy_(mu, torch._foreach_add(torch._foreach_mul(gs, 1 - b1), torch._foreach_mul(mu, b1)))
-            g2 = torch._foreach_mul(gs, gs)
-            torch._foreach_copy_(nu, torch._foreach_add(torch._foreach_mul(g2, 1 - b2), torch._foreach_mul(nu, b2)))
-            t = np.float32(self.state[ps[0]]["step"])
-            bias1 = float(np.float32(1) - np.float32(b1) ** t)
-            bias2 = float(np.float32(1) - np.float32(b2) ** t)
-            denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bias2)), group["eps"])
-            updates = torch._foreach_div(torch._foreach_div(mu, bias1), denom)
-            torch._foreach_add_(ps, torch._foreach_mul(updates, -float(np.float32(group["lr"]))))
+            t = np.float32(self.state[gps[0]]["step"])
+            values = dict(c1=1 - b1, b1=b1, c2=1 - b2, b2=b2, bias1=float(np.float32(1) - np.float32(b1) ** t),
+                          bias2=float(np.float32(1) - np.float32(b2) ** t), eps=group["eps"],
+                          neg_lr=-float(np.float32(group["lr"])))
+            for k, v in values.items():
+                sc[k] += [v] * len(gps)
+            ps += gps
+            gs += ggs
+        if not ps:
+            return loss
+        mu = [self.state[p]["mu"] for p in ps]
+        nu = [self.state[p]["nu"] for p in ps]
+        torch._foreach_copy_(mu, torch._foreach_add(torch._foreach_mul(gs, sc["c1"]), torch._foreach_mul(mu, sc["b1"])))
+        g2 = torch._foreach_mul(gs, gs)
+        torch._foreach_copy_(nu, torch._foreach_add(torch._foreach_mul(g2, sc["c2"]), torch._foreach_mul(nu, sc["b2"])))
+        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, sc["bias2"])), sc["eps"])
+        updates = torch._foreach_div(torch._foreach_div(mu, sc["bias1"]), denom)
+        torch._foreach_add_(ps, torch._foreach_mul(updates, sc["neg_lr"]))
         return loss
 
 

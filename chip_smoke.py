@@ -115,6 +115,28 @@ Phases, each of which fails the run:
    1e-5).  Prints each engine's windows/s and wall s, the host and device
    time of each stage, launches and host syncs per chunk, peak device
    memory.
+11. many models at once (``train/stacked.py``), on phase 8's data and
+   step time: with both TF32 flags on, one stacked step of each trainer
+   (2 configs at B=32) against the same step in float64 on the CPU by the
+   LSTM leaves' gradients (within 1e-3 and a tenth of the error of a
+   backward outside ``cudnn_fp32``, which is run beside it), and no cuDNN
+   weight-copy warning; the working set of one step (the classifier at
+   B=512 without and with remat, the autoencoder at B=128) beside
+   ``core/hbm.py``'s count; ``cli.classify deep --sizes 500 11500 --seeds
+   25 --epochs 2 --vectorized --remat_chunk 0`` on 12,000 synthetic beats
+   a class (25 seeds stacked, B=512, T=320, 1->128->64->64): its AUCs
+   finite, ms per stacked step, model-epochs/s, idle share; at size 1,000
+   one epoch stacked without and with remat and one seed after another,
+   wall and peak memory beside the count; two seeds from one init, dropout
+   0, stacked on the card, each alone on the card (bit-identical) and on
+   the CPU (probabilities within 1e-3); ``cli.main_ae -m train --seeds
+   0,1,2,3 --lr_sweep 1,0.5`` and ``--latent_sizes 10,20`` (1 epoch) and
+   ``-m test`` of one run, which launches the encoder kernel: ms per
+   stacked step beside S x phase 8's step, configs x steps/s, idle share,
+   peak memory beside the count; two configs from one init, dropout 0,
+   together against each alone on the card (bit-identical) and on the CPU
+   (phase 8's tolerances), and a run resumed from its checkpoint against
+   the uninterrupted one (bit-identical).
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -952,7 +974,7 @@ def training_readings(torch, tag: str, rec, model_class: str, groups, batch: int
     # the steps after the first 10, outside the profiled windows (tracing slows the host)
     timed = np.array([i >= 10 and not any(w[0] <= i < w[1] for w in (PROFILE_STEPS, IDLE_STEPS))
                       for i in range(len(steps))])
-    p50 = float(np.median(step_ms[timed]))
+    p50 = rec["p50"] = float(np.median(step_ms[timed]))
     val_ms = np.array([v[0] for v in validations])
     print(f"[{tag}] {len(steps)} steps of B={batch} in {rec['train_s']:.2f} s wall (the CLI, data load and "
           f"checkpoints included); over the {int(timed.sum())} steps after the first 10 outside the profiled windows "
@@ -1183,7 +1205,7 @@ def phase_train(torch, dev, work=None):
     print(f"[train] Adam, host ms per step on the default model: the port's (optax's order) {adam_ms['port']:.4f}, "
           f"torch.optim.Adam(fused=True) {adam_ms['fused']:.4f}; the fused one's 10 steps on the card against the "
           f"port's on the CPU: max relative {fused_err:.3e}")
-    return launches["train"] + launches["test"], dict(data=data, results=results, run=run)
+    return launches["train"] + launches["test"], dict(data=data, results=results, run=run, step_ms=rec["p50"])
 
 
 # phase 9: the conv autoencoder trained and tested on phase 8's data, then the reconstruction study
@@ -1703,6 +1725,487 @@ def phase_extract(torch, dev, work=None):
     return launched
 
 
+# phase 11: many models at once, the DL classifier's size x seed sweep and multi-config AE training
+DL_PER_CLASS, DL_BEATS_PER_CASE = 12000, 50
+DL_SMALL, DL_BIG, DL_SEEDS, DL_EPOCHS = 500, 11500, 25, 2
+# the main path without remat: the port trains one seed's working set at a time, so remat saves next to no memory
+# and its 16 checkpointed chunks a layer cost several times the step (dl_compare measures both)
+DL_ARGS = ["--sizes", str(DL_SMALL), str(DL_BIG), "--seeds", str(DL_SEEDS), "--epochs", str(DL_EPOCHS), "--vectorized",
+           "--remat_chunk", "0"]
+DL_COMPARE_SIZE = 1000  # stacked against one seed after another, and peak memory with and without remat
+MULTI_ARGS = ["--epochs", "1", "--validation_interval", "25", "--split_size_val", "0.05", "--split_size_test",
+              "0.05", "--plotting", ""]
+MULTI_SEEDS, MULTI_LRS, MULTI_LATENTS = "0,1,2,3", "1,0.5", "10,20"
+STEP_WINDOW = (10, 15)  # calls of a stacked step traced for the idle share
+STACKED_GRAD_TOL = 1e-3  # the LSTM leaves' gradients on the card against float64 (stacked_tf32_check)
+
+
+def write_dl_dir(d: str, seed: int) -> None:
+    """np_waves.npy, np_info.npy, controls.csv and hypopotassium.csv:
+    12,000 synthetic beats a class, 50 a case id; the sick class's T wave
+    at 0.6 of its height (hypokalaemia flattens it)."""
+    os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    waves, centres = synthetic_beats_and_centres(rng, 2 * DL_PER_CLASS)
+    t = np.arange(T_BEAT)[None, :]
+    bump = 0.3 * np.exp(-0.5 * ((t - centres[DL_PER_CLASS:, 4:5]) / WAVE_WIDTHS[4]) ** 2)
+    waves[DL_PER_CLASS:] -= (0.4 * bump).astype(np.float32)
+    ids = np.repeat(np.arange(2 * DL_PER_CLASS // DL_BEATS_PER_CASE) + 5000, DL_BEATS_PER_CASE)
+    np.save(os.path.join(d, "np_waves.npy"), waves)
+    np.save(os.path.join(d, "np_info.npy"), np.stack([ids, np.arange(len(ids))], 1).astype(np.float64))
+    for name, part in (("controls.csv", np.unique(ids[:DL_PER_CLASS])), ("hypopotassium.csv",
+                                                                         np.unique(ids[DL_PER_CLASS:]))):
+        with open(os.path.join(d, name), "w") as f:
+            f.write("idx,caseid\n" + "".join(f"{i},{c}\n" for i, c in enumerate(part)))
+
+
+class StepTimer:
+    """``module.name`` (a stacked step) replaced inside the ``with``: each
+    call timed by CUDA events with its count of active configs and its data
+    tensor's shape, and calls [STEP_WINDOW) traced by torch.profiler
+    (kernels alone) for the idle share."""
+
+    def __init__(self, torch, module, name: str):
+        self.torch, self.module, self.name = torch, module, name
+        self.orig = getattr(module, name)
+        self.calls, self.prof, self.window_s = [], None, None
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        if self.prof is not None and self.window_s is None:
+            self.prof.stop()
+
+    def __call__(self, stacked, optimizer, active, *a):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        i = len(self.calls)
+        if i == STEP_WINDOW[0]:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CUDA])
+            self.prof.start()
+            self.t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = self.orig(stacked, optimizer, active, *a)
+        end.record()
+        self.calls.append((start, end, len(active), tuple(a[0].shape)))
+        if i == STEP_WINDOW[1] - 1:
+            torch.cuda.synchronize()
+            self.window_s = time.perf_counter() - self.t0
+            self.prof.stop()
+        return out
+
+    def ms(self, keep=None):
+        """CUDA-event ms of the calls outside the traced window (``keep``
+        picks calls by index)."""
+        self.torch.cuda.synchronize()
+        return np.array([s.elapsed_time(e) for i, (s, e, _, _) in enumerate(self.calls)
+                         if not STEP_WINDOW[0] <= i < STEP_WINDOW[1] and (keep is None or keep(i))])
+
+    def idle_share(self) -> float:
+        spans = sorted((e.time_range.start, e.time_range.end) for e in self.prof.events()
+                       if e.device_type == self.torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, float("-inf")
+        for a, b in spans:
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        return 1.0 - busy / 1e6 / self.window_s
+
+
+def stacked_pair(torch, kind: str, device, dtype=None, seeds=(5, 6)):
+    """Two configs of the LSTM autoencoder or the LSTM classifier stacked on
+    ``device`` from the seeds' inits (in ``dtype``, float32 when None)."""
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
+    from ae_waveforms_tpu_torch.train.stacked import StackedConfigs
+
+    dtype = dtype or torch.float32
+    cls = LSTMAutoencoder if kind == "ae" else LSTMClassifier
+    models = [cls(generator=torch.Generator().manual_seed(s), device="cpu").to(dtype) for s in seeds]
+    return StackedConfigs(cls(device=device).to(dtype).train(), models, device)
+
+
+def stacked_gradients(torch, kind: str, device: str, fp32_backward: bool = True, dtype=None):
+    """Both configs' gradients (float64, on the CPU) after one stacked step
+    at B=32, dropout 0, learning rate 0, in ``dtype`` (float32 when None);
+    with ``fp32_backward`` False the losses' backward runs outside
+    ``cudnn_fp32``."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.train.loop import batch_loss
+    from ae_waveforms_tpu_torch.train.multi import multi_step
+
+    stacked = stacked_pair(torch, kind, device, dtype)
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((2, 32, T_BEAT, 1)).astype(np.float32)).to(device, dtype)
+    y = torch.from_numpy((rng.random((2, 32)) > 0.5).astype(np.float32)).to(device, dtype)
+    idx = torch.arange(32, device=device).expand(2, 32)
+    mask = torch.ones((2, 32), dtype=torch.bool, device=device)
+    gens = [torch.Generator(device=device).manual_seed(s) for s in (0, 1)]
+    optimizer = torch.optim.SGD(stacked.param_groups(), lr=0.0)
+    if fp32_backward and kind == "ae":
+        multi_step(stacked, optimizer, [0, 1], x[0], idx, mask, [0.0, 0.0], gens, 0.0, "mse")
+    elif fp32_backward:
+        dl.stacked_step(stacked, optimizer, [0, 1], x, y, idx, mask, gens, 0.0, None)
+    else:
+        for s in (0, 1):
+            loss = (batch_loss(stacked.bound(s), x[0], idx[s], mask[s], gens[s], 0.0, "mse") if kind == "ae"
+                    else dl.batch_bce(stacked.bound(s), x[s], y[s], idx[s], mask[s], gens[s], 0.0, None))
+            loss.backward()
+    return {f"{s}.{k}": p.grad.double().cpu() for s, leaves in enumerate(stacked.leaves) for k, p in leaves.items()}
+
+
+def lstm_grad_err(got, ref) -> float:
+    """Relative error, in the Frobenius norm, of all the LSTM leaves'
+    gradients together (every config's)."""
+    keys = [k for k in ref if "lstm" in k or ".enc" in k or ".dec" in k]
+    diff = sum(float((got[k] - ref[k]).square().sum()) for k in keys)
+    return (diff / sum(float(ref[k].square().sum()) for k in keys)) ** 0.5
+
+
+def stacked_tf32_check(torch, dev) -> None:
+    """With both TF32 flags on, one step of each stacked trainer on the
+    card, held to the same step in float64 on the CPU by the LSTM leaves'
+    gradients (``lstm_grad_err``): within STACKED_GRAD_TOL and within a
+    tenth of the same losses' error with their backward outside
+    ``cudnn_fp32``, in TF32.  Not phase 8's 1e-4 of each leaf's largest: at
+    init the classifier's gradients are ill-conditioned (BatchNorm divides
+    by the small spread of 32 pooled rows, and the attention pooling's sums
+    mostly cancel), so float32 alone, on the CPU, is 5.8e-5 from float64
+    over its LSTM leaves and up to 1.5e-3 on a bias.  Also: no cuDNN
+    warning that an LSTM's weights were copied (the flat copies are read in
+    place)."""
+    import warnings
+
+    flags = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = [f.allow_tf32 for f in flags]
+    try:
+        for f in flags:
+            f.allow_tf32 = True
+        for kind in ("ae", "classifier"):
+            ref = stacked_gradients(torch, kind, "cpu", dtype=torch.float64)
+            cpu = lstm_grad_err(stacked_gradients(torch, kind, "cpu"), ref)
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                card = lstm_grad_err(stacked_gradients(torch, kind, dev), ref)
+            copied = [w for w in caught if "contiguous chunk" in str(w.message)]
+            tf32 = lstm_grad_err(stacked_gradients(torch, kind, dev, fp32_backward=False), ref)
+            print(f"[many] {kind}: one stacked step of 2 configs at B=32, both TF32 flags on, the LSTM leaves' "
+                  f"gradients against the float64 step on the CPU (relative, Frobenius): the card {card:.3e}, its "
+                  f"backward in TF32 {tf32:.3e}, the CPU's float32 step {cpu:.3e} (the card within "
+                  f"{STACKED_GRAD_TOL:g} and a tenth of TF32's); cuDNN weight-copy warnings {len(copied)}")
+            check(card <= min(STACKED_GRAD_TOL, tf32 / 10), f"{kind} stacked gradients under TF32 flags: {card}, "
+                  f"{tf32}")
+            check(not copied, f"cuDNN copied the {kind}'s LSTM weights: {copied[0].message if copied else ''}")
+    finally:
+        for f, v in zip(flags, saved):
+            f.allow_tf32 = v
+
+
+def working_set_probe(torch, dev) -> None:
+    """Peak device memory of one training step of one config beside
+    ``core/hbm.py``'s working-set count: the classifier at B=512 without and
+    with remat 20, the LSTM autoencoder at B=128 (T=320, learning rate 0,
+    the step run once before, so the peak is a warm step's); and of the
+    classifier's eval-mode pass over 500 rows."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.core import hbm
+    from ae_waveforms_tpu_torch.train.multi import multi_step
+
+    rng = np.random.default_rng(7)
+    for kind, B, remat in (("classifier", 512, None), ("classifier", 512, 20), ("ae", 128, None)):
+        stacked = stacked_pair(torch, kind, dev, seeds=(5,))
+        x = torch.from_numpy(rng.standard_normal((1, B, T_BEAT, 1)).astype(np.float32)).to(dev)
+        y = torch.from_numpy((rng.random((1, B)) > 0.5).astype(np.float32)).to(dev)
+        idx, mask = torch.arange(B, device=dev)[None], torch.ones((1, B), dtype=torch.bool, device=dev)
+        gens = [torch.Generator(device=dev).manual_seed(0)]
+        optimizer = torch.optim.SGD(stacked.param_groups(), lr=0.0)
+        hidden = dl.HIDDEN_SIZES if kind == "classifier" else (128, 64, 10, 64, 128, 1)
+
+        def step():
+            if kind == "ae":
+                multi_step(stacked, optimizer, [0], x[0], idx, mask, [0.0], gens, 0.2, "mse")
+            else:
+                dl.stacked_step(stacked, optimizer, [0], x, y, idx, mask, gens, 0.2, remat)
+
+        step()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        model = hbm.recurrent_working_set_bytes(T_BEAT, B, hidden, remat or 0)
+        print(f"[many] working set of one {kind} step at B={B}, T={T_BEAT}, remat {remat or 'off'}: peak device "
+              f"memory over the step {peak / 2**20:.1f} MiB, core/hbm.py's count {model / 2**20:.1f} MiB "
+              f"({peak / (4 * B * T_BEAT * sum(hidden)):.2f} float32 words a (row, step, unit))")
+    # the classifier's eval-mode pass over 500 rows (the sweep's test set; its validation passes alike)
+    model = stacked_pair(torch, "classifier", dev, seeds=(5,)).module_of(0).eval()
+    x = torch.from_numpy(rng.standard_normal((500, T_BEAT, 1)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        model(x)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model(x)
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    count = hbm.recurrent_working_set_bytes(T_BEAT, 0, dl.HIDDEN_SIZES, 0, n_val=500)
+    print(f"[many] working set of the classifier's eval-mode pass over 500 rows: peak device memory "
+          f"{peak / 2**20:.1f} MiB, core/hbm.py's count {count / 2**20:.1f} MiB "
+          f"({peak / (4 * 500 * T_BEAT * sum(dl.HIDDEN_SIZES)):.2f} float32 words a (row, step, unit))")
+
+
+def dl_checks(torch, dev) -> None:
+    """Two seeds from one init, dropout 0, on the card, once more on the
+    card one at a time, and on the CPU: 2 epochs of 128 beats at B=64, the
+    last epoch's params kept (min_delta -1); the models' probabilities on 64
+    other beats."""
+    from ae_waveforms_tpu_torch import bridge
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
+    from ae_waveforms_tpu_torch.train.checkpoint import tree_leaves
+
+    rng = np.random.default_rng(21)
+    beats = synthetic_beats(rng, 2 * 128 + 2 * 64 + 64)[:, :, None]
+    Xs, Xvs, Xt = beats[:256].reshape(2, 128, T_BEAT, 1), beats[256:384].reshape(2, 64, T_BEAT, 1), beats[384:]
+    ys = np.tile(np.r_[np.zeros(64), np.ones(64)], (2, 1))
+    yvs = np.tile(np.r_[np.zeros(32), np.ones(32)], (2, 1))
+    kw = dict(num_epochs=2, batch_size=64, min_delta=-1.0, dropout_rate=0.0)
+    init = {s: bridge.classifier_to_numpy(LSTMClassifier(generator=torch.Generator().manual_seed(100 + s),
+                                                         device="cpu")) for s in (0, 1)}
+
+    def probs(models, device):
+        out = []
+        for params, state in models:
+            model = bridge.classifier_from_numpy(params, state, device=device)
+            with torch.no_grad():
+                out.append(model(torch.from_numpy(Xt).to(device)).cpu().numpy())
+        return np.stack(out)
+
+    card = dl.train_classifier_multi(Xs, ys, Xvs, yvs, [0, 1], device=dev, init=init.__getitem__, **kw)
+    single = [dl.train_classifier(Xs[i], ys[i], Xvs[i], yvs[i], i, device=dev, init=init.__getitem__, **kw)
+              for i in (0, 1)]
+    cpu = dl.train_classifier_multi(Xs, ys, Xvs, yvs, [0, 1], device="cpu", init=init.__getitem__, **kw)
+    same = all(np.array_equal(a, b) for i in (0, 1) for a, b in zip(tree_leaves(card[i]), tree_leaves(single[i])))
+    p_card, p_single, p_cpu = probs(card, dev), probs(single, dev), probs(cpu, "cpu")
+    err = float(np.abs(p_card - p_cpu).max())
+    print(f"[many] DL classifier, 2 seeds from one init, dropout 0, 4 steps at B=64: stacked against each seed "
+          f"alone on the card bit-identical: {same} (probabilities {np.abs(p_card - p_single).max():.3e} apart); card "
+          f"against CPU probabilities max_abs_err {err:.3e} (tolerance 1e-3: 4 Adam steps of lr 1e-4 move a weight "
+          f"whose gradient is rounding noise by up to 4e-4)")
+    check(float(np.abs(p_card - p_single).max()) <= 1e-6, "stacked seeds differ from single-seed runs on the card")
+    check(err <= 1e-3, f"card and CPU DL training differ by {err}")
+
+
+def dl_compare(torch, dev, control, sick, hbm_shape):
+    """At DL_COMPARE_SIZE, one epoch of the 25 seeds: stacked (remat off and
+    20) and one seed after another (remat off): wall s and peak memory
+    beside ``core/hbm.py``'s count."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.core import hbm
+
+    n_train = int(DL_COMPARE_SIZE * 2 * 0.8)
+    n_val = 2 * DL_COMPARE_SIZE - n_train
+    params = dl._param_count()
+    out = {}
+    for name, vectorized, remat in (("stacked, remat off", True, None), ("stacked, remat 20", True, 20),
+                                    ("one seed after another, remat off", False, None)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        dl.dl_size_seed_sweep(control, sick, sizes=(DL_COMPARE_SIZE,), n_seeds=DL_SEEDS, num_epochs=1,
+                              vectorized=vectorized, remat_chunk=remat, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        S = DL_SEEDS if vectorized else 1
+        model = (S * hbm.train_block_hbm_bytes_per_config(n_train, n_val, T_BEAT, 512, dl.HIDDEN_SIZES, params)
+                 + hbm.recurrent_working_set_bytes(T_BEAT, 512, dl.HIDDEN_SIZES, remat or 0, n_val))
+        out[name] = wall
+        print(f"[many] DL, size {DL_COMPARE_SIZE} ({n_train} train rows), {DL_SEEDS} seeds, 1 epoch, {name}: "
+              f"{wall:.3f} s wall, {DL_SEEDS / wall:.3f} model-epochs/s; peak device memory {peak / 2**20:.1f} MiB, "
+              f"core/hbm.py's count {model / 2**20:.1f} MiB")
+    cap = hbm.seed_axis_cap(*hbm_shape, dl.HIDDEN_SIZES, params)
+    ratio = out["one seed after another, remat off"] / out["stacked, remat off"]
+    print(f"[many] DL: one seed after another takes {ratio:.3f}x the stacked wall time; core/hbm.py's seed cap at "
+          f"size {DL_BIG} ({hbm_shape[0]} train rows, no remat) on this card: {cap}")
+
+
+def phase_dl(torch, dev, work):
+    """The DL half of phase 11; its main path is ``cli.classify deep``."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.cli import classify as cli_classify
+
+    data = os.path.join(work, "dl")
+    write_dl_dir(data, seed=40)
+    chunk_s, real_multi = [], dl.train_classifier_multi
+
+    def timed_multi(Xs, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_multi(Xs, *a, **k)
+        torch.cuda.synchronize()
+        chunk_s.append((Xs.shape[1], time.perf_counter() - t0))
+        return out
+
+    dl.train_classifier_multi = timed_multi
+    try:
+        with StepTimer(torch, dl, "stacked_step") as steps:
+            t0 = time.perf_counter()
+            summary = cli_classify.main(["deep", "--data", data, *DL_ARGS])
+            wall = time.perf_counter() - t0
+    finally:
+        dl.train_classifier_multi = real_multi
+    n_big, big_s = next((n, s) for n, s in chunk_s if n == int(2 * DL_BIG * 0.8))
+    ms = steps.ms(lambda i: steps.calls[i][2] == DL_SEEDS and steps.calls[i][3][1] == n_big)
+    print(f"[many] cli.classify deep {' '.join(DL_ARGS)}: {wall:.3f} s wall; size {DL_BIG}: {DL_SEEDS} seeds x "
+          f"{-(-n_big // 512)} steps an epoch, trained in {big_s:.3f} s, {DL_SEEDS * DL_EPOCHS / big_s:.3f} "
+          f"model-epochs/s; ms per stacked step of {DL_SEEDS} seeds (CUDA events, {len(ms)} steps) p50 "
+          f"{np.median(ms):.3f}, min {ms.min():.3f}, max {ms.max():.3f} ({np.median(ms) / DL_SEEDS:.3f} a seed); "
+          f"idle share over steps {STEP_WINDOW[0]} to "
+          f"{STEP_WINDOW[1] - 1} {steps.idle_share():.3f}")
+    print(f"[many] DL sweep median AUC by size: " + ", ".join(f"{r['size']} {r['median_auc']:.4f} (IQR {r['q1']:.4f}-"
+                                                              f"{r['q3']:.4f})" for r in summary))
+    check([r["size"] for r in summary] == [DL_SMALL, DL_BIG], "DL sweep sizes")
+    check(all(len(r["aucs"]) == DL_SEEDS and np.all(np.isfinite(r["aucs"])) for r in summary), "DL sweep AUCs")
+    out = os.path.join(data, f"{DL_EPOCHS}_hypopotassium")
+    check(os.path.isfile(os.path.join(out, "summary_auc_stats.csv")), "DL sweep summary CSV")
+    check(len(ms) > 0, f"no stacked step of {DL_SEEDS} seeds was timed")
+
+    waves = np.load(os.path.join(data, "np_waves.npy"))
+    dl_compare(torch, dev, waves[:DL_PER_CLASS], waves[DL_PER_CLASS:], (n_big, 2 * DL_BIG - n_big, T_BEAT, 512))
+    dl_checks(torch, dev)
+
+
+def multi_readings(torch, tag: str, steps: StepTimer, S: int, wall: float, single_ms: float) -> None:
+    ms = steps.ms(lambda i: steps.calls[i][2] == S)
+    print(f"[many] {tag}: {len(steps.calls)} stacked steps of {S} configs in {wall:.3f} s wall (the CLI, data and "
+          f"run dirs included); ms per stacked step (CUDA events) p50 {np.median(ms):.3f}, min {ms.min():.3f}, "
+          f"max {ms.max():.3f}, beside {S} x phase 8's step {S * single_ms:.3f}; {S / np.median(ms) * 1e3:.1f} "
+          f"configs x steps/s at the p50; idle share over steps {STEP_WINDOW[0]} to {STEP_WINDOW[1] - 1} "
+          f"{steps.idle_share():.3f}")
+
+
+def multi_checks(torch, dev, work: str) -> None:
+    """On a 1,024-beat data dir at B=32, dropout 0: two configs together
+    against each alone on the card, the card against the CPU from one init
+    (10 steps, phase 8's tolerances), and a resume from the checkpoint
+    after step 7 against the run it left."""
+    from ae_waveforms_tpu_torch.bridge import lstm_ae_params_to_numpy
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.core.schema import load_arrays
+    from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+    from ae_waveforms_tpu_torch.train.checkpoint import tree_leaves
+    from ae_waveforms_tpu_torch.train.multi import stack_trees, train_ae_multi, unstack_tree
+
+    data = os.path.join(work, "multi_data")
+    write_beat_dir(data, 1024, 32, seed=12)
+    arrays = load_arrays(data)
+    cfg = TrainConfig(dataset_dir=data, results_dir=os.path.join(work, "multi_res"), batch_size=32,
+                      validation_interval=3, dropout=0.0, split_size_val=0.1, split_size_test=0.1, plotting=False)
+    init = stack_trees([lstm_ae_params_to_numpy(LSTMAutoencoder(generator=torch.Generator().manual_seed(s),
+                                                                device="cpu")) for s in (11, 12)])
+    # one segment a dispatch, so max_steps (checked after a dispatch) ends the runs after 10 and 7 steps
+    kw = dict(arrays=arrays, lr_multipliers=[1.0, 0.5], max_steps=10, init_params=init, segments_per_dispatch=1)
+    card = train_ae_multi(cfg, [0, 1], device=dev, **kw)
+    cpu = train_ae_multi(cfg, [0, 1], device="cpu", **kw)
+    ones = [train_ae_multi(cfg, [s], arrays=arrays, lr_multipliers=[m], max_steps=10, device=dev,
+                           segments_per_dispatch=1, init_params=stack_trees([unstack_tree(init)[s]]))
+            for s, m in ((0, 1.0), (1, 0.5))]
+    got = np.concatenate([card.train_losses, card.val_losses])
+    want = np.concatenate([cpu.train_losses, cpu.val_losses])
+    alone = np.concatenate([np.concatenate([o.train_losses, o.val_losses]) for o in ones], 1)
+    err = np.abs(got - want)
+    print(f"[many] multi AE, 2 configs (lr x1, x0.5) from one init, dropout 0, {len(card.train_losses)} steps at "
+          f"B=32 ({len(card.train_losses)} train and {len(card.val_losses)} validation losses each): together against "
+          f"each alone on the card bit-identical: {bool(np.array_equal(got, alone))} (max relative "
+          f"{float(np.max(np.abs(got - alone) / np.abs(alone))):.3e}); card against CPU max_abs_err {err.max():.3e}, "
+          f"max relative {float(np.max(err / np.abs(want))):.3e} (tolerance rtol 5e-4, atol 5e-5)")
+    check(bool(np.all(np.isfinite(got))), "multi AE losses are not finite")
+    check(float(np.max(np.abs(got - alone) / np.abs(alone))) <= 1e-6, "configs together differ from each alone")
+    check(bool(np.all(err <= 5e-5 + 5e-4 * np.abs(want))), "card and CPU multi-config training differ")
+
+    ck = os.path.join(work, "multi_ck")
+    full = train_ae_multi(cfg, [0, 1], device=dev, results_dir=os.path.join(work, "multi_full"), **kw)
+    part = train_ae_multi(cfg, [0, 1], device=dev, results_dir=ck, checkpoint_every=1, **{**kw, "max_steps": 5})
+    resumed = train_ae_multi(cfg, [0, 1], device=dev, results_dir=ck, checkpoint_every=1, resume_dir=ck, **kw)
+    same = (np.array_equal(resumed.train_losses, full.train_losses)
+            and np.array_equal(resumed.val_losses, full.val_losses)
+            and all(np.array_equal(a, b) for a, b in zip(tree_leaves(resumed.best_params),
+                                                         tree_leaves(full.best_params))))
+    print(f"[many] multi AE resumed from its checkpoint after {len(part.train_losses)} of {len(full.train_losses)} "
+          f"steps against the uninterrupted run: bit-identical {same}")
+    check(same and len(part.train_losses) < len(full.train_losses), "a resumed multi-config run differs from the "
+          "uninterrupted one")
+
+
+def phase_multi(torch, dev, lstm):
+    """The AE half of phase 11 on phase 8's data; its main path is
+    ``cli.main_ae`` multi-config training and one run's test pass.
+    Returns the encoder kernel's launches there."""
+    from ae_waveforms_tpu_torch.cli import main_ae
+    from ae_waveforms_tpu_torch.core import hbm
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+    from ae_waveforms_tpu_torch.train import multi
+
+    cfg = TrainConfig()
+    base = ["--dataset_dir", lstm["data"], "--results_dir", os.path.join(os.path.dirname(lstm["data"]), "multi"),
+            *MULTI_ARGS]
+    S = len(MULTI_SEEDS.split(",")) * len(MULTI_LRS.split(","))
+    encode_fused.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    with StepTimer(torch, multi, "multi_step") as steps:
+        t0 = time.perf_counter()
+        runs = main_ae.autoencoder(["-m", "train", *base, "--seeds", MULTI_SEEDS, "--lr_sweep", MULTI_LRS])
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - mem0
+    with StepTimer(torch, multi, "multi_step") as steps2:
+        t0 = time.perf_counter()
+        grouped = main_ae.autoencoder(["-m", "train", *base, "--latent_sizes", MULTI_LATENTS])
+        wall2 = time.perf_counter() - t0
+    test = main_ae.autoencoder(["-m", "test", *base, "--trained_model", os.path.basename(runs[0])])
+    launches = encode_fused.launches
+    multi_readings(torch, f"cli.main_ae --seeds {MULTI_SEEDS} --lr_sweep {MULTI_LRS}", steps, S, wall,
+                   lstm["step_ms"])
+    multi_readings(torch, f"cli.main_ae --latent_sizes {MULTI_LATENTS}", steps2, 1, wall2, lstm["step_ms"])
+    n_rows = sum(int(np.load(glob.glob(os.path.join(runs[0], f"indices_{split}_*.npy"))[0]).sum())
+                 for split in ("train", "val"))  # the rows on the card, held once for every config
+    p_count = sum(p.numel() for p in multi.model_def(cfg.model_class).build(10, device="meta").parameters())
+    hidden = (128, 64, 10, 64, 128, 1)
+    model = (4 * n_rows * T_BEAT + S * hbm.train_block_hbm_bytes_per_config(0, 0, T_BEAT, 128, hidden, p_count)
+             + hbm.recurrent_working_set_bytes(T_BEAT, 128, hidden))
+    cap = multi._config_axis_cap(cfg.model_class, 10, cfg.batch_size, TRAIN_BEATS, T_BEAT)
+    print(f"[many] multi AE, {S} configs: peak device memory {peak / 2**20:.1f} MiB, core/hbm.py's count "
+          f"{model / 2**20:.1f} MiB; its config cap on this card {cap}")
+    print(f"[many] cli.main_ae -m test on {os.path.basename(runs[0])}: loss {test[0]:.6f}; lstm_encoder launches in "
+          f"the multi-config training and test {launches}")
+    check(len(runs) == S and len(grouped) == 2 and all(os.path.isdir(d) for d in runs + grouped),
+          "multi-config run dirs")
+    check(np.isfinite(test[0]) and launches > 0, f"multi-config test pass: loss {test[0]}, launches {launches}")
+    multi_checks(torch, dev, os.path.dirname(lstm["data"]))
+    return launches
+
+
+def phase_many_models(torch, dev, lstm):
+    """Phase 11 on phase 8's data and step time (``lstm``); returns the
+    encoder kernel's launches on its main path."""
+    stacked_tf32_check(torch, dev)
+    working_set_probe(torch, dev)
+    with workdir(os.path.dirname(lstm["data"])) as work:
+        phase_dl(torch, dev, work)
+    return phase_multi(torch, dev, lstm)
+
+
 def main() -> int:
     import torch
 
@@ -1742,11 +2245,13 @@ def main() -> int:
         train_launches, lstm = timed("8 AE train and test", phase_train, torch, dev, work)
         study_launches = timed("9 conv AE and reconstruction study", phase_reconstruction, torch, dev, lstm)
         timed("10 extraction", phase_extract, torch, dev, work)
+        many_launches = timed("11 many models", phase_many_models, torch, dev, lstm)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
              replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109",
-             launches=serve_launches["lstm_encoder"] + train_launches + study_launches["lstm_encoder"], **encoder),
+             launches=serve_launches["lstm_encoder"] + train_launches + study_launches["lstm_encoder"] + many_launches,
+             **encoder),
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
              replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
              launches=serve_launches["gbt_route"] + classify_launches["gbt_route"] + study_launches["gbt_route"],

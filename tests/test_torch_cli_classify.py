@@ -60,8 +60,8 @@ def test_ppv_and_latent_tasks_write_their_results(tmp_path, capsys):
 
 def test_later_slices_raise(tmp_path):
     d = _data_dir(tmp_path, n_per=20)
-    with pytest.raises(NotImplementedError, match="DL-classifier slice"):
-        cli.main(["deep", "--data", d, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="multi-device slice"):
+        cli.main(["deep", "--data", d, "--n_devices", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="multi-device slice"):
         cli.main(["ppv", "--data", d, "--n_devices", "2", "--device", "cpu"])
 

@@ -32,6 +32,7 @@ from ae_waveforms_tpu_torch.ops.gbt_route import (
 )
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
 from ae_waveforms_tpu_torch.traditional.reconstruction import reconstruct_gaussian_sweep
+from ae_waveforms_tpu_torch.train.checkpoint import tree_leaves
 from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
 from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
 
@@ -589,3 +590,124 @@ def test_device_engine_streams_with_the_full_width_rerun_on_the_card():
         np.testing.assert_array_equal(a.indices, b.indices)
         np.testing.assert_array_equal(a.waves, b.waves)
         np.testing.assert_array_equal(a.features, b.features)
+
+
+# -- stacked multi-config training (train/stacked.py) ----------------------------------------------------------------
+
+
+def _stacked(kind: str, device, dtype=torch.float32, seeds=(5, 6)):
+    """Two configs of the LSTM autoencoder or the LSTM classifier stacked on
+    ``device`` in ``dtype``, from the seeds' inits."""
+    from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
+    from ae_waveforms_tpu_torch.train.stacked import StackedConfigs
+
+    cls = LSTMAutoencoder if kind == "ae" else LSTMClassifier
+    models = [cls(generator=torch.Generator().manual_seed(s), device="cpu").to(dtype) for s in seeds]
+    return StackedConfigs(cls(device=device).to(dtype).train(), models, device)
+
+
+def _stacked_step_grads(kind: str, device, fp32_backward: bool = True, dtype=torch.float32):
+    """Every config's gradients (float64, on the CPU) after one stacked step
+    at B=32, T=320, dropout 0, at learning rate 0, in ``dtype``; with
+    ``fp32_backward`` False each loss's backward runs outside
+    ``cudnn_fp32``."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.train.multi import multi_step
+
+    stacked = _stacked(kind, device, dtype)
+    rng = np.random.default_rng(32)
+    x = torch.from_numpy(rng.standard_normal((2, 32, 320, 1)).astype(np.float32)).to(device, dtype)
+    y = torch.from_numpy((rng.random((2, 32)) > 0.5).astype(np.float32)).to(device, dtype)
+    idx = torch.arange(32, device=device).expand(2, 32)
+    mask = torch.ones((2, 32), dtype=torch.bool, device=device)
+    generators = [torch.Generator(device=device).manual_seed(s) for s in (0, 1)]
+    optimizer = torch.optim.SGD(stacked.param_groups(), lr=0.0)
+    if fp32_backward and kind == "ae":
+        multi_step(stacked, optimizer, [0, 1], x[0], idx, mask, [0.0, 0.0], generators, 0.0, "mse")
+    elif fp32_backward:
+        dl.stacked_step(stacked, optimizer, [0, 1], x, y, idx, mask, generators, 0.0, None)
+    else:
+        for s in (0, 1):
+            if kind == "ae":
+                loss = batch_loss(stacked.bound(s), x[0], idx[s], mask[s], generators[s], 0.0, "mse")
+            else:
+                loss = dl.batch_bce(stacked.bound(s), x[s], y[s], idx[s], mask[s], generators[s], 0.0, None)
+            loss.backward()
+    return {f"{s}.{k}": p.grad.double().cpu() for s, leaves in enumerate(stacked.leaves) for k, p in leaves.items()}
+
+
+@pytest.mark.parametrize("kind", ["ae", "classifier"])
+def test_stacked_step_gradients_keep_full_float32_under_tf32_flags(tf32_flags, kind):
+    """With both TF32 flags on, a stacked step's gradients on the card,
+    held to the same step in float64 on the CPU by the LSTM leaves'
+    gradients together (relative, Frobenius): within 1e-3 and within a
+    tenth of the same losses' error with their backward outside
+    ``cudnn_fp32``.  At init the classifier's gradients are ill-conditioned
+    (BatchNorm over 32 pooled rows, cancelling attention sums): float32
+    alone, on the CPU, is 5.8e-5 from float64 over its LSTM leaves."""
+    dev = _card()
+
+    def err(got, ref):
+        keys = [k for k in ref if "lstm" in k or ".enc" in k or ".dec" in k]
+        diff = sum(float((got[k] - ref[k]).square().sum()) for k in keys)
+        return (diff / sum(float(ref[k].square().sum()) for k in keys)) ** 0.5
+
+    ref = _stacked_step_grads(kind, "cpu", dtype=torch.float64)
+    card = err(_stacked_step_grads(kind, dev), ref)
+    tf32 = err(_stacked_step_grads(kind, dev, fp32_backward=False), ref)
+    print(f"{kind}: the LSTM leaves' gradients against float64 on the CPU: the card {card:.3e}, in TF32 {tf32:.3e}")
+    assert card <= min(1e-3, tf32 / 10)
+
+
+def test_stacked_step_hands_cudnn_its_weights_in_place():
+    """cuDNN warns where an LSTM's weights are not one flat buffer in its
+    order (and copies them); the stacked step's flat copies are."""
+    import warnings
+
+    dev = _card()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for kind in ("ae", "classifier"):
+            _stacked_step_grads(kind, dev)
+    assert not [w for w in caught if "contiguous chunk" in str(w.message)]
+
+
+@pytest.mark.parametrize("kind", ["ae", "classifier"])
+def test_stacked_runs_equal_single_runs_on_the_card(kind):
+    """Two configs trained together on the card, dropout on, and each
+    alone: equal bit for bit (each config runs its own cuDNN calls)."""
+    from ae_waveforms_tpu_torch.classify import dl
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.train.multi import train_ae_multi
+
+    dev = _card()
+    rng = np.random.default_rng(3)
+    if kind == "ae":
+        import types
+
+        n = 256
+        info = np.stack([np.repeat(np.arange(32), 8), np.arange(n)], 1).astype(np.float64)
+        arrays = types.SimpleNamespace(waves=rng.standard_normal((n, 320)).astype(np.float32), info=info,
+                                       features=np.zeros((n, 35), np.float32))
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg = TrainConfig(dataset_dir=os.path.join(tmp, "d"), results_dir=os.path.join(tmp, "r"), batch_size=32,
+                              validation_interval=3, split_size_val=0.2, split_size_test=0.1, plotting=False)
+            both = train_ae_multi(cfg, [3, 4], arrays=arrays, max_steps=8, device=dev)
+            ones = [train_ae_multi(cfg, [s], arrays=arrays, max_steps=8, device=dev) for s in (3, 4)]
+        for i, one in enumerate(ones):
+            np.testing.assert_array_equal(both.train_losses[:, i], one.train_losses[:, 0])
+            np.testing.assert_array_equal(both.val_losses[:, i], one.val_losses[:, 0])
+    else:
+        Xs = rng.standard_normal((2, 96, 320, 1)).astype(np.float32)
+        ys = (rng.random((2, 96)) > 0.5).astype(np.float32)
+        Xvs = rng.standard_normal((2, 32, 320, 1)).astype(np.float32)
+        yvs = np.tile(np.r_[np.zeros(16), np.ones(16)], (2, 1))
+        kw = dict(num_epochs=2, batch_size=32, device=dev, min_delta=-1.0)
+        both = dl.train_classifier_multi(Xs, ys, Xvs, yvs, [0, 1], **kw)
+        for i in range(2):
+            one = dl.train_classifier(Xs[i], ys[i], Xvs[i], yvs[i], i, **kw)
+            for a, b in zip(tree_leaves(both[i]), tree_leaves(one)):
+                np.testing.assert_array_equal(a, b)
+
