@@ -28,8 +28,12 @@ module's counterpart is found under the same path:
 - ``cli``          the extraction CLI, the AE CLI (``main_ae``: train,
                    test), the classify CLI (``latent``, ``features``,
                    ``ppv``) and the analysis CLI.
-- ``core``         the extraction and training configs and the array
-                   schema.
+- ``core``         the extraction and training configs (``vars.env``
+                   loaded at import), the array schema, the memory model
+                   and the FLOP counts with the card's peaks.
+- ``parallel``     several devices on ``torch.distributed``, one process a
+                   device: the launcher, the (data, model) grid of ranks,
+                   the tensor-parallel pair and the entry hooks.
 - ``train``        AE training (``main_train``: the patient split, losses,
                    schedules, optimizers, logs) and the test pass with
                    latent export (``main_test``); checkpoints in the JAX

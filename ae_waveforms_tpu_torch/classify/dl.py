@@ -26,6 +26,11 @@ JAX package draws them, so every seed trains on the same rows in the same
 order.  Init and dropout draw from ``torch.Generator``s seeded with the
 seed, which cannot give ``jax.random``'s numbers; ``init`` injects another
 package's.
+
+With ``mesh`` (a ``parallel.mesh.Grid``) a call's seeds are split over the
+grid's data axis in contiguous blocks; each rank trains its block and the
+models are gathered in seed order on every rank.  A seed's training reads
+nothing of another's, so the split changes no result.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ae_waveforms_tpu_torch.bridge import classifier_to_numpy
 from ae_waveforms_tpu_torch.classify.harness import _roc_auc_device, roc_auc_score
 from ae_waveforms_tpu_torch.classify.split import train_test_split
 from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
+from ae_waveforms_tpu_torch.parallel.mesh import Grid, gather_blocks
 from ae_waveforms_tpu_torch.train.checkpoint import save_state
 from ae_waveforms_tpu_torch.train.loop import _batched_indices
 from ae_waveforms_tpu_torch.train.stacked import StackedConfigs
@@ -203,10 +209,12 @@ def train_classifier_multi(
     device=None,
     init: Optional[Init] = None,
     dropout_rate: float = DROPOUT_RATE,
+    mesh: Optional[Grid] = None,
 ):
     """All seeds trained together on ``device`` (the first CUDA device
     unless named); see the module docstring.  Returns one (params, state)
-    pair of JAX-named numpy trees a seed.
+    pair of JAX-named numpy trees a seed.  With ``mesh``, this rank trains
+    its block of the seeds and every rank returns every seed's pair.
 
     ``max_seed_chunk``: most seeds trained at once; a wider call splits
     into balanced groups trained one after another, each seed's result
@@ -214,6 +222,15 @@ def train_classifier_multi(
     on a CUDA device and no cap on the CPU; 0 is no cap."""
     device = resolve_device(device)
     seeds = [int(s) for s in seeds]
+    if mesh is not None:
+        rows = mesh.rows(len(seeds))
+        part = []
+        if rows.stop > rows.start:
+            part = train_classifier_multi(Xs[rows], ys[rows], Xvs[rows], yvs[rows], seeds[rows], num_epochs=num_epochs,
+                                          batch_size=batch_size, patience=patience, min_delta=min_delta,
+                                          remat_chunk=remat_chunk, max_seed_chunk=max_seed_chunk, device=device,
+                                          init=init, dropout_rate=dropout_rate)
+        return [m for p in gather_blocks(part, mesh) for m in p]
     if max_seed_chunk is None:
         max_seed_chunk = 0
         if device.type == "cuda":
@@ -283,6 +300,7 @@ def dl_size_seed_sweep(
     device=None,
     init: Optional[Init] = None,
     dropout_rate: float = DROPOUT_RATE,
+    mesh: Optional[Grid] = None,
 ) -> List[Dict]:
     """The full size x seed harness on raw beats; returns summary records
     and, with ``out_dir``, writes ``size_{n}/aucs_size_{n}.csv`` and
@@ -291,15 +309,20 @@ def dl_size_seed_sweep(
 
     ``vectorized`` trains the seeds of a size in chunks of ``seed_chunk``
     together; without it, one after another.  Each seed's data, schedule
-    and result are the same either way."""
+    and result are the same either way.  ``mesh`` splits each chunk's
+    seeds over the grid's ranks (and implies ``vectorized``); every rank
+    returns the records, rank 0 alone prints and writes files."""
     device = resolve_device(device)
+    vectorized = vectorized or mesh is not None
+    writer = mesh is None or mesh.rank == 0
     control = np.asarray(control_waves)[:, :, None].astype(np.float32)
     sick = np.asarray(sick_waves)[:, :, None].astype(np.float32)
     ts = min(test_size, len(control) - 1, len(sick) - 1)
     X_test = np.concatenate([control[-ts:], sick[-ts:]], axis=0)
     y_test = np.concatenate([np.zeros(ts), np.ones(ts)])
     control_train, sick_train = control[:-ts], sick[:-ts]
-    kw = dict(num_epochs=num_epochs, remat_chunk=remat_chunk, device=device, init=init, dropout_rate=dropout_rate)
+    kw = dict(num_epochs=num_epochs, remat_chunk=remat_chunk, device=device, init=init, dropout_rate=dropout_rate,
+              mesh=mesh)
 
     summary = []
     for size in sizes:
@@ -324,12 +347,14 @@ def dl_size_seed_sweep(
             preds = predict(models, X_test, device=device)
             for i, s in enumerate(chunk):
                 aucs.append(roc_auc_score(y_test, preds[i]))
-                if save_models and out_dir:
+                if save_models and out_dir and writer:
                     save_state(os.path.join(out_dir, f"size_{size}", f"model_seed_{s}.npz"),
                                {"params": models[i][0], "state": models[i][1]})
         rec = {"size": size, "median_auc": float(np.median(aucs)), "q1": float(np.percentile(aucs, 25)),
                "q3": float(np.percentile(aucs, 75)), "aucs": aucs}
         summary.append(rec)
+        if not writer:
+            continue
         print(f"Size: {size}, Median AUC: {rec['median_auc']:.4f}, IQR: ({rec['q1']:.4f}, {rec['q3']:.4f})")
         if out_dir:
             os.makedirs(os.path.join(out_dir, f"size_{size}"), exist_ok=True)
@@ -338,7 +363,7 @@ def dl_size_seed_sweep(
                 wr.writerow(["seed", "auc"])
                 for s, a in enumerate(aucs):
                     wr.writerow([s, a])
-    if out_dir:
+    if out_dir and writer:
         with open(os.path.join(out_dir, "summary_auc_stats.csv"), "w", newline="") as f:
             wr = csv.writer(f)
             wr.writerow(["size", "median_auc", "q1", "q3"])

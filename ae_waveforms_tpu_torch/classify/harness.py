@@ -24,6 +24,13 @@ vectorized grid search fits chunks of candidates in one ``fit_gbt_sweep``
 call per (depth bucket, fold, chunk).  ROC-AUC and precision are the port's
 own functions (sklearn is not needed), and the CSVs are written with the
 ``csv`` module; matplotlib is imported only to draw the figures.
+
+With ``mesh`` (a ``parallel.mesh.Grid``) the vectorized sweep's seeds are
+split over the grid's data axis in contiguous blocks: each rank fits its
+block with the kernels on its own device and the probabilities are
+gathered in seed order on every rank; rank 0 alone prints and writes
+files.  A seed's row mask and subsample draws depend on its seed alone,
+and the split sums are exact, so the split changes no result.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from ae_waveforms_tpu_torch.classify.gbt import (
     predict_margin_multi,
 )
 from ae_waveforms_tpu_torch.classify.lhs import lhs_param_dicts
+from ae_waveforms_tpu_torch.parallel.mesh import Grid, gather_blocks
 
 __all__ = [
     "prepare_class_data",
@@ -60,14 +68,6 @@ __all__ = [
 ]
 
 DEFAULT_SIZES = [100, 250, 500, 750, 1000, 1500, 2000, 2500, 3000, 4000, 6000]
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "sharding the seed axis over a device mesh belongs to the multi-device slice "
-            "(ROADMAP.md, queue 1, item 11); the port fits every seed on one device"
-        )
 
 
 def _classifier_cls(backend: str):
@@ -327,15 +327,15 @@ def _fit_eval(data: ClassData, size: int, seed: int, best_params: Dict, drop_col
 
 def _fit_eval_vectorized(
     data: ClassData, size: int, n_seeds: int, best_params: Dict, drop_col: Optional[int],
-    mesh=None, device=None,
+    mesh: Optional[Grid] = None, device=None,
 ) -> np.ndarray:
-    """All seeds of one size fitted together, one ``fit_gbt_multi`` call.
+    """All seeds of one size fitted together, one ``fit_gbt_multi`` call
+    (with ``mesh``, one a rank for its block of the seeds).
 
     Seed subsets become row-weight masks over the pooled train matrix;
     binning uses the pool's quantile edges (vs per-subset edges in the
     sequential path — an approximation-detail difference only).  Returns
     the (n_seeds, n_test) probabilities."""
-    _no_mesh(mesh)
     dev = resolve_device(device)
     X_pool = np.concatenate([data.control_train, data.sick_train], axis=0).astype(np.float32)
     y_pool = np.concatenate(
@@ -353,18 +353,23 @@ def _fit_eval_vectorized(
         weights[seed, rng.choice(n_c, size, replace=False)] = 1.0
         weights[seed, n_c + rng.choice(len(data.sick_train), size, replace=False)] = 1.0
 
-    edges = torch.as_tensor(compute_bin_edges(X_pool), device=dev)
-    bins_pool = bin_data(torch.as_tensor(X_pool, device=dev), edges)
-    bins_test = bin_data(torch.as_tensor(np.asarray(X_test, np.float32), device=dev), edges)
-    p = best_params
-    ens = fit_gbt_multi(
-        bins_pool, y_pool, weights, np.arange(n_seeds) + 42,
-        max_depth=int(p["max_depth"]), n_estimators=int(p["n_estimators"]),
-        learning_rate=float(p["learning_rate"]), gamma=float(p["gamma"]),
-        min_child_weight=float(p["min_child_weight"]), subsample=float(p["subsample"]),
-        colsample_bytree=float(p["colsample_bytree"]),
-    )
-    margins = predict_margin_multi(ens, bins_test, int(p["max_depth"])).cpu().numpy()
+    rows = slice(0, n_seeds) if mesh is None else mesh.rows(n_seeds)
+    margins = np.zeros((0, len(X_test)), np.float32)
+    if rows.stop > rows.start:
+        edges = torch.as_tensor(compute_bin_edges(X_pool), device=dev)
+        bins_pool = bin_data(torch.as_tensor(X_pool, device=dev), edges)
+        bins_test = bin_data(torch.as_tensor(np.asarray(X_test, np.float32), device=dev), edges)
+        p = best_params
+        ens = fit_gbt_multi(
+            bins_pool, y_pool, weights[rows], (np.arange(n_seeds) + 42)[rows],
+            max_depth=int(p["max_depth"]), n_estimators=int(p["n_estimators"]),
+            learning_rate=float(p["learning_rate"]), gamma=float(p["gamma"]),
+            min_child_weight=float(p["min_child_weight"]), subsample=float(p["subsample"]),
+            colsample_bytree=float(p["colsample_bytree"]),
+        )
+        margins = predict_margin_multi(ens, bins_test, int(p["max_depth"])).cpu().numpy()
+    if mesh is not None:
+        margins = np.concatenate(gather_blocks(margins, mesh))
     return 1.0 / (1.0 + np.exp(-margins))  # (S, n_test)
 
 
@@ -386,19 +391,20 @@ def size_seed_sweep(
     out_dir: Optional[str] = None,
     file_stem: str = "",
     vectorized: bool = False,
-    mesh=None,
+    mesh: Optional[Grid] = None,
     backend: str = "torch",
     device=None,
 ) -> Tuple[List[Dict], List[Dict]]:
     """AUC-vs-training-size evaluation; writes individual_aucs.csv and
     summary_auc_by_size.csv plus the AUC-vs-size plot when out_dir given.
-    ``vectorized=True`` fits all seeds of a size together."""
-    _no_mesh(mesh)
+    ``vectorized=True`` fits all seeds of a size together; ``mesh`` splits
+    them over the grid's ranks."""
+    writer = mesh is None or mesh.rank == 0
     auc_records, summary_records = [], []
     for size in sizes:
         size = min(size, len(data.control_train), len(data.sick_train))
         if vectorized:
-            probas = _fit_eval_vectorized(data, size, n_seeds, best_params, drop_col, device=device)
+            probas = _fit_eval_vectorized(data, size, n_seeds, best_params, drop_col, mesh=mesh, device=device)
         else:
             probas = [_fit_eval(data, size, seed, best_params, drop_col, backend=backend, device=device)
                       for seed in range(n_seeds)]
@@ -415,12 +421,13 @@ def size_seed_sweep(
                 "q3_auc": float(np.percentile(aucs, 75)),
             }
         )
-        print(
-            f"Size: {size}, Median AUC: {summary_records[-1]['median_auc']:.4f}, "
-            f"IQR: ({summary_records[-1]['q1_auc']:.4f}, {summary_records[-1]['q3_auc']:.4f})"
-        )
+        if writer:
+            print(
+                f"Size: {size}, Median AUC: {summary_records[-1]['median_auc']:.4f}, "
+                f"IQR: ({summary_records[-1]['q1_auc']:.4f}, {summary_records[-1]['q3_auc']:.4f})"
+            )
 
-    if out_dir is not None:
+    if out_dir is not None and writer:
         os.makedirs(out_dir, exist_ok=True)
         prefix = f"{file_stem}_" if file_stem else ""
         _write_csv(os.path.join(out_dir, f"{prefix}individual_aucs.csv"), auc_records)
@@ -436,17 +443,17 @@ def ppv_analysis(
     n_seeds: int = 25,
     threshold: float = 0.5,
     vectorized: bool = False,
-    mesh=None,
+    mesh: Optional[Grid] = None,
     backend: str = "torch",
     device=None,
 ) -> Dict:
     """Median/IQR AUC and PPV at the given threshold for one training size —
     the north-star hypokalaemia PPV metric (analysis_PPV_hypokalaemia.py).
-    ``vectorized=True`` fits all seeds together."""
-    _no_mesh(mesh)
+    ``vectorized=True`` fits all seeds together; ``mesh`` splits them over
+    the grid's ranks."""
     size = min(size, len(data.control_train), len(data.sick_train))
     if vectorized:
-        seed_probas = list(_fit_eval_vectorized(data, size, n_seeds, best_params, None, device=device))
+        seed_probas = list(_fit_eval_vectorized(data, size, n_seeds, best_params, None, mesh=mesh, device=device))
     else:
         seed_probas = [
             _fit_eval(data, size, seed, best_params, None, backend=backend, device=device)
@@ -467,12 +474,13 @@ def ppv_analysis(
         "aucs": aucs,
         "ppvs": ppvs,
     }
-    print(f"Size: {size}")
-    print(f"Median AUC: {result['median_auc']:.4f}, IQR: ({result['q1_auc']:.4f}, {result['q3_auc']:.4f})")
-    print(
-        f"Median PPV @ threshold {threshold}: {result['median_ppv']:.4f}, "
-        f"IQR: ({result['q1_ppv']:.4f}, {result['q3_ppv']:.4f})"
-    )
+    if mesh is None or mesh.rank == 0:
+        print(f"Size: {size}")
+        print(f"Median AUC: {result['median_auc']:.4f}, IQR: ({result['q1_auc']:.4f}, {result['q3_auc']:.4f})")
+        print(
+            f"Median PPV @ threshold {threshold}: {result['median_ppv']:.4f}, "
+            f"IQR: ({result['q1_ppv']:.4f}, {result['q3_ppv']:.4f})"
+        )
     return result
 
 

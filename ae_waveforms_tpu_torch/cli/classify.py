@@ -15,14 +15,18 @@ Inputs follow the reference's file contracts: ``controls.csv`` /
 feature .npy pairs (features task), ``np_waves.npy`` (the ``deep`` task:
 the LSTM classifier on raw beats, ``classify/dl.py``).  Every model runs on
 ``--device`` (the first CUDA device unless named; ``--device cpu`` runs the
-plain versions).  ``--n_devices`` belongs to a later slice of the port and
-raises ``NotImplementedError``.
+plain versions).  ``--n_devices N`` (as in the JAX CLI: it implies
+``--vectorized``) splits each sweep's seeds over N ranks, one process a
+device (``parallel/launch.py``; ``cuda:0`` to ``cuda:{N-1}`` over NCCL, or N
+CPU ranks over gloo with ``--device cpu``); rank 0 runs the grid search and
+hands its choice to the others, and alone prints and writes files.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import numpy as np
 
@@ -60,9 +64,21 @@ def _grid_search(args, data):
     X = np.concatenate([data.control_train[: args.gs_size], data.sick_train[: args.gs_size]])
     y = np.concatenate([np.zeros(min(args.gs_size, len(data.control_train))),
                         np.ones(min(args.gs_size, len(data.sick_train)))])
-    gs = grid_search_cv(X, y, n_candidates=args.gs_candidates, random_state=1, verbose=True,
-                        vectorized=args.vectorized, device=args.device)
-    print("Best hyperparameters found:", gs["best_params"])
+    return _grid_search_once(args, X, y)
+
+
+def _grid_search_once(args, X, y):
+    """The grid search, on rank 0 alone when the seeds are split over
+    ranks; every rank returns its result."""
+    gs = None
+    if args.mesh is None or args.mesh.rank == 0:
+        gs = grid_search_cv(X, y, n_candidates=args.gs_candidates, random_state=1, verbose=True,
+                            vectorized=args.vectorized, device=args.device)
+        print("Best hyperparameters found:", gs["best_params"])
+    if args.mesh is not None:
+        from ae_waveforms_tpu_torch.parallel.mesh import broadcast_object
+
+        gs = broadcast_object(gs)
     return gs
 
 
@@ -71,14 +87,14 @@ def run_latent(args):
     gs = _grid_search(args, data)
     out = os.path.join(args.data, "results", os.path.splitext(args.sick_file)[0].split("_")[-1].lower())
     return size_seed_sweep(data, gs["best_params"], sizes=args.sizes, n_seeds=args.seeds, out_dir=out,
-                           vectorized=args.vectorized, device=args.device)
+                           vectorized=args.vectorized, mesh=args.mesh, device=args.device)
 
 
 def run_ppv(args):
     data = _latent_class_data(args)
     gs = _grid_search(args, data)
     return ppv_analysis(data, gs["best_params"], size=6000, n_seeds=args.seeds,
-                        vectorized=args.vectorized, device=args.device)
+                        vectorized=args.vectorized, mesh=args.mesh, device=args.device)
 
 
 def run_features(args):
@@ -91,14 +107,13 @@ def run_features(args):
     y = np.concatenate([np.zeros(min(6000, len(data.control_train))),
                         np.ones(min(6000, len(data.sick_train)))])
     X = np.delete(X, 5, axis=1)
-    gs = grid_search_cv(X, y, n_candidates=args.gs_candidates, random_state=1, verbose=True,
-                        vectorized=args.vectorized, device=args.device)
-    print("Best hyperparameters found:", gs["best_params"])
+    gs = _grid_search_once(args, X, y)
     out = os.path.join(args.data, "results")
     stem = os.path.splitext(args.sick_features)[0]
     sizes = args.sizes + [10000, 11500]
     return size_seed_sweep(data, gs["best_params"], sizes=sizes, n_seeds=args.seeds, drop_col=5,
-                           out_dir=out, file_stem=stem, vectorized=args.vectorized, device=args.device)
+                           out_dir=out, file_stem=stem, vectorized=args.vectorized, mesh=args.mesh,
+                           device=args.device)
 
 
 def run_deep(args):
@@ -115,11 +130,13 @@ def run_deep(args):
     return dl_size_seed_sweep(control, sick, sizes=args.sizes or DL_SIZES, n_seeds=args.seeds,
                               num_epochs=args.epochs, out_dir=out, save_models=args.save_models,
                               vectorized=args.vectorized, seed_chunk=args.seed_chunk,
-                              remat_chunk=args.remat_chunk or None, device=args.device)
+                              remat_chunk=args.remat_chunk or None, device=args.device, mesh=args.mesh)
 
 
-def main(argv=None):
-    """Parse ``argv`` and run the task; returns the task's result."""
+TASKS = {"latent": run_latent, "features": run_features, "deep": run_deep, "ppv": run_ppv}
+
+
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("task", choices=["latent", "features", "deep", "ppv"])
     p.add_argument("--data", required=True)
@@ -138,20 +155,40 @@ def main(argv=None):
                    help="fit all seeds of a size (and chunks of grid-search candidates) together; deep task: "
                         "--seed_chunk seeds at a time")
     p.add_argument("--n_devices", type=int, default=0,
-                   help="shard the seed axis over n devices (not ported yet; must be 0)")
+                   help="split the vectorized seed axis over n devices, one rank each (0 = one device; "
+                        "implies --vectorized)")
     p.add_argument("--seed_chunk", type=int, default=25, help="deep task: seeds trained together")
     p.add_argument("--remat_chunk", type=int, default=20,
                    help="deep task: time steps an LSTM recomputes at once in the backward (identical gradients, "
                         "less memory); 0 = off")
     p.add_argument("--device", default=None,
                    help="torch device (default: the first CUDA device; 'cpu' runs the plain versions)")
-    args = p.parse_args(argv)
-    if args.n_devices:
-        raise NotImplementedError(
-            "--n_devices: sharding over several devices is the multi-device slice of the port "
-            "(ROADMAP.md, queue 1, item 11); run with --n_devices 0"
-        )
-    return {"latent": run_latent, "features": run_features, "deep": run_deep, "ppv": run_ppv}[args.task](args)
+    return p
+
+
+def main(argv=None):
+    """Parse ``argv`` and run the task; returns the task's result (rank 0's
+    with ``--n_devices`` above 1)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
+    args.mesh = None
+    if args.n_devices > 1:
+        from ae_waveforms_tpu_torch.parallel import launch
+
+        devices, backend = launch.devices_for(args.n_devices, args.device)
+        return launch.run(_rank, (argv,), devices, backend, timeout_s=None)
+    args.vectorized = args.vectorized or args.n_devices == 1
+    return TASKS[args.task](args)
+
+
+def _rank(device, argv):
+    """One rank of a task whose seeds are split over several devices
+    (``parallel.launch.run``)."""
+    from ae_waveforms_tpu_torch.parallel.mesh import data_mesh
+
+    args = build_parser().parse_args(argv)
+    args.device, args.vectorized, args.mesh = device, True, data_mesh()
+    return TASKS[args.task](args)
 
 
 if __name__ == "__main__":

@@ -10,8 +10,12 @@ resumable; the last step stacks all cases into np_waves / np_features /
 np_info plus a data_stats.json (case ids and per-case sample counts, the
 reference's data_stats.pkl contract in a dependency-free format).  The
 device stages run on ``--device`` (the first CUDA device unless named;
-``--device cpu`` runs them on the CPU).  ``--n_devices`` above 1 and
-``--from-parquet`` belong to later work and raise ``NotImplementedError``.
+``--device cpu`` runs them on the CPU).  ``--n_devices N`` above 1 (with
+``--engine device --batched``, as in the JAX CLI) splits each window chunk
+over N ranks, one process a device (``parallel/launch.py``; ``cuda:0`` to
+``cuda:{N-1}`` over NCCL, or N CPU ranks over gloo with ``--device cpu``);
+rank 0 writes the cache and the arrays.  ``--from-parquet`` is the next
+slice of the port and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 from ae_waveforms_tpu_torch import resolve_device
@@ -30,9 +35,7 @@ from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
 from ae_waveforms_tpu_torch.data.vitaldb_io import find_cases, have_vitaldb, make_loader
 
 
-def main(argv=None, stats: ExtractionStats = None) -> dict:
-    """Run the CLI; returns ``{"results", "stats", "elapsed_s"}`` (the
-    ``stats`` given, or a new ``ExtractionStats``)."""
+def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser()
     p.add_argument("--out", type=str, required=True, help="output dataset dir")
     p.add_argument("--cases", type=int, default=16, help="number of cases (offline mode)")
@@ -48,26 +51,52 @@ def main(argv=None, stats: ExtractionStats = None) -> dict:
     p.add_argument("--no-cache", action="store_true")
     p.add_argument("--batched", action="store_true", help="pool windows across cases into large device batches")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="shard each window chunk over this many devices (not ported yet; at most 1)")
+                   help="split each window chunk over this many devices, one rank each (needs --engine device "
+                        "--batched)")
     p.add_argument("--from-parquet", type=str, default=None,
                    help="build the arrays from reference-format per-case parquet files (not ported)")
     p.add_argument("--device", default=None,
                    help="torch device of the device stages (default: the first CUDA device; 'cpu' runs them "
                         "on the CPU)")
-    args = p.parse_args(argv)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError(
-            "--n_devices: sharding over several devices is the multi-device slice of the port "
-            "(ROADMAP.md, queue 1, item 11); run on one device")
+    return p
+
+
+def main(argv=None, stats: ExtractionStats = None) -> dict:
+    """Run the CLI; returns ``{"results", "stats", "elapsed_s"}`` (the
+    ``stats`` given, or a new ``ExtractionStats``; with ``--n_devices``
+    above 1 rank 0's results and time, and stats None)."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    args = build_parser().parse_args(argv)
     if args.from_parquet:
         raise NotImplementedError(
-            "--from-parquet needs pandas, which the port does not use (ROADMAP.md, queue 1, item 7, "
-            "what stays out); convert with the JAX package's cli.extract")
-    device = resolve_device(args.device)
+            "--from-parquet is the next slice of the port (ROADMAP.md, queue 1, item 12); convert with the "
+            "JAX package's cli.extract")
+    if args.n_devices is not None and args.n_devices > 1:
+        if args.engine != "device" or not args.batched:
+            raise SystemExit("--n_devices requires --engine device --batched")
+        from ae_waveforms_tpu_torch.parallel import launch
+
+        devices, backend = launch.devices_for(args.n_devices, args.device)
+        return launch.run(_rank, (argv,), devices, backend, timeout_s=None)
+    return _run(args, resolve_device(args.device), stats)
+
+
+def _rank(device, argv) -> dict:
+    """One rank of an extraction whose chunks are split over several
+    devices (``parallel.launch.run``)."""
+    from ae_waveforms_tpu_torch.parallel.mesh import data_mesh
+
+    out = _run(build_parser().parse_args(argv), device, None, data_mesh())
+    return dict(out, stats=None)  # its host stage times stay in the rank
+
+
+def _run(args, device, stats, mesh=None) -> dict:
+    writer = mesh is None or mesh.rank == 0
 
     cfg = ExtractionConfig(path_data=args.out, precision=args.precision, delineation_engine=args.engine,
                            delineation_resample=args.resample)
-    os.makedirs(args.out, exist_ok=True)
+    if writer:
+        os.makedirs(args.out, exist_ok=True)
     cache_dir = None if args.no_cache else os.path.join(args.out, "case_ids")
 
     if args.case_ids is not None:
@@ -84,8 +113,10 @@ def main(argv=None, stats: ExtractionStats = None) -> dict:
 
     stats = stats if stats is not None else ExtractionStats()
     t0 = time.time()
-    results = extract_cases(case_ids, loader, cfg, cache_dir=cache_dir, progress=True, batched=args.batched,
-                            device=device, stats=stats)
+    results = extract_cases(case_ids, loader, cfg, cache_dir=cache_dir, progress=writer, batched=args.batched,
+                            device=device, stats=stats, mesh=mesh)
+    if not writer:
+        return {"results": results, "stats": stats, "elapsed_s": time.time() - t0}
     with stats.stage("write"):
         save_arrays(build_arrays(results), args.out, allow_pickle=cfg.use_pickle)
         summary = {

@@ -17,16 +17,26 @@ In train mode, ``--seeds``, ``--lr_sweep`` and ``--latent_sizes`` train the
 cross of their values together (``train/multi.py``), one run dir a
 configuration and one group a latent size; ``--per_config_splits``,
 ``--multi_checkpoint_every`` and ``--multi_resume_dir`` go with them.
-Several devices (``--n_devices``, ``--model_parallel`` above 1) belong to
-a later slice of the port and raise ``NotImplementedError``.
+
+Several devices, as in the JAX CLI: ``--n_devices N`` trains over N ranks,
+one process a device (``parallel/launch.py``; ``cuda:0`` to ``cuda:{N-1}``
+over NCCL, or N CPU ranks over gloo with ``--device cpu``), the batch split
+over the data axis and the model replicated over ``--model_parallel``'s
+model axis; a multi-config run splits its configs instead.  ``--n_devices
+0`` trains a single run on every visible device (one when ``--device``
+names one) and a multi-config run on one, as the JAX package does.  More
+devices than are visible exit with a message that names the count.  The
+test pass runs on one device.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ae_waveforms_tpu_torch.core.config import TrainConfig
 
@@ -64,9 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--plotting", type=bool, default=d.plotting)
     p.add_argument("--tracker", type=str, default=d.tracker or "none")
     p.add_argument("--n_devices", type=int, default=d.n_devices,
-                   help="devices to train on (0 = one; above 1 is not ported yet)")
+                   help="devices in the training grid, one rank each (0 = all visible)")
     p.add_argument("--model_parallel", type=int, default=d.model_parallel,
-                   help="size of the model-parallel axis (above 1 is not ported yet)")
+                   help="size of the model axis of the (data, model) grid")
     # multi-config training: S configurations of this architecture trained together (train/multi.py)
     p.add_argument("--seeds", type=str, default="",
                    help="comma-separated seeds; train mode only: trained together, one run dir per seed")
@@ -126,39 +136,63 @@ def config_from_args(args: argparse.Namespace) -> TrainConfig:
 
 
 def autoencoder(custom_args: Optional[List[str]] = None):
-    from ae_waveforms_tpu_torch.train.loop import require_single_device
-
-    args = build_parser().parse_args(custom_args)
+    argv = list(sys.argv[1:] if custom_args is None else custom_args)
+    args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    require_single_device(cfg)
-    np.random.seed(cfg.seed)
+    if str(cfg.mode).lower() == "train":
+        multi = bool(args.seeds.strip() or args.lr_sweep.strip() or args.latent_sizes.strip())
+        # the JAX package: main_train's mesh spans every visible device by default, train_ae_multi's only
+        # the --n_devices given
+        n = cfg.n_devices or (0 if multi else torch.cuda.device_count() if args.device is None else 1)
+        if n > 1 or (cfg.model_parallel > 1 and not multi):
+            from ae_waveforms_tpu_torch.parallel import launch
 
+            devices, backend = launch.devices_for(max(n, 1), args.device)
+            if len(devices) % cfg.model_parallel:
+                raise ValueError(f"--model_parallel {cfg.model_parallel} must divide --n_devices {len(devices)}")
+            return launch.run(_rank, (argv,), devices, backend, timeout_s=None)
+    return _run(args, cfg, args.device)
+
+
+def _rank(device, argv: List[str]):
+    """One rank of a run over several devices (``parallel.launch.run``)."""
+    from ae_waveforms_tpu_torch.parallel.mesh import data_mesh
+
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+    return _run(args, cfg, device, data_mesh(cfg.model_parallel))
+
+
+def _run(args, cfg: TrainConfig, device, mesh=None):
+    np.random.seed(cfg.seed)
     mode = str(cfg.mode).lower()
     if mode == "train":
         if args.seeds.strip() or args.lr_sweep.strip() or args.latent_sizes.strip():
-            return _train_multi(args, cfg)
+            return _train_multi(args, cfg, device, mesh)
         from ae_waveforms_tpu_torch.train.loop import main_train
 
-        output_dir = main_train(cfg, device=args.device)
-        print(f"Training done, results and trained model saved at: {output_dir}")
+        output_dir = main_train(cfg, device=device, mesh=mesh)
+        if mesh is None or mesh.rank == 0:
+            print(f"Training done, results and trained model saved at: {output_dir}")
         return output_dir
     if mode in ("test", "inference"):
         from ae_waveforms_tpu_torch.train.eval import main_test
 
         (_, (test_loss, rmse, rmse_samples, prd, prd_samples), (test_pred, test_true, test_c), _) = main_test(
-            cfg, device=args.device)
+            cfg, device=device)
         return test_loss, rmse, rmse_samples, prd, prd_samples, test_pred, test_true, test_c
     raise ValueError(f"unknown mode {cfg.mode!r}")
 
 
-def _train_multi(args, cfg: TrainConfig) -> List[str]:
+def _train_multi(args, cfg: TrainConfig, device, mesh) -> List[str]:
     """The cross of --seeds x --lr_sweep (x --latent_sizes, one group a
     latent size) trained together; returns the run dirs."""
     from ae_waveforms_tpu_torch.train.multi import train_ae_multi, train_ae_multi_grouped
 
     seeds = [int(s) for s in args.seeds.split(",") if s.strip()] if args.seeds.strip() else [cfg.seed]
     mults = [float(m) for m in args.lr_sweep.split(",") if m.strip()] if args.lr_sweep.strip() else [1.0]
-    kw = dict(per_config_splits=bool(args.per_config_splits), save_runs=True, device=args.device)
+    kw = dict(per_config_splits=bool(args.per_config_splits), save_runs=True, device=device, mesh=mesh)
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a: None)
     if args.multi_checkpoint_every:
         kw.update(checkpoint_every=args.multi_checkpoint_every, results_dir=cfg.results_dir)
     if args.multi_resume_dir.strip():
@@ -170,13 +204,13 @@ def _train_multi(args, cfg: TrainConfig) -> List[str]:
         for d in latents:
             res = by_latent[d]
             for s, m, rd, v in zip(res.seeds, res.lr_multipliers, res.run_dirs, res.best_val):
-                print(f"Training done (latent {d}, seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {rd}")
+                say(f"Training done (latent {d}, seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {rd}")
             run_dirs.extend(res.run_dirs)
         return run_dirs
     res = train_ae_multi(cfg, [s for s in seeds for _ in mults], lr_multipliers=[m for _ in seeds for m in mults],
                          **kw)
     for s, m, d, v in zip(res.seeds, res.lr_multipliers, res.run_dirs, res.best_val):
-        print(f"Training done (seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {d}")
+        say(f"Training done (seed {s}, lr x{m:g}, best val {v:.6f}), saved at: {d}")
     return res.run_dirs
 
 

@@ -3,8 +3,10 @@ package's ``ExtractionConfig`` and ``TrainConfig``; all reference defaults
 are preserved).
 
 Pure Python: the port keeps its own copy so that it imports nothing of the
-JAX package.  Unlike the JAX module, importing this one reads no
-``vars.env`` file; ``DATA_FOLDER_PATH`` is read from the environment.
+JAX package.  As the JAX module does, importing this one loads ``vars.env``
+from the working directory into the environment (variables already set
+win), so ``DATA_FOLDER_PATH`` there sets the default data directory of
+both packages alike.
 """
 
 from __future__ import annotations
@@ -14,7 +16,28 @@ import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
-__all__ = ["ExtractionConfig", "TrainConfig", "default_extraction_config"]
+__all__ = ["ExtractionConfig", "TrainConfig", "default_extraction_config", "load_env_file"]
+
+
+def load_env_file(path: str = "vars.env", override: bool = False) -> dict:
+    """Load KEY=VALUE pairs from an env file into os.environ (the reference's
+    dotenv-based vars.env contract, config.py:6-12, without requiring the
+    python-dotenv package).  Returns the parsed mapping."""
+    values = {}
+    if os.path.isfile(path):
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if not line or line.startswith("#") or "=" not in line:
+                    continue
+                k, v = line.split("=", 1)
+                values[k.strip()] = v.strip()
+                if override or k.strip() not in os.environ:
+                    os.environ[k.strip()] = v.strip()
+    return values
+
+
+load_env_file()  # opportunistic, like the reference's module-import load
 
 
 def _env(name: str, default: str) -> str:

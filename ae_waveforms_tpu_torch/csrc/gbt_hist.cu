@@ -80,6 +80,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;  // rows a lane reads at a time
 constexpr int kQueue = 32 * (kRows + 1);  // a warp's queue: fewer than 32 left over, 32 * kRows new
 constexpr int kMaxCluster = 8;
+constexpr int kMaxDevices = 64;  // devices a process may launch on
 constexpr int kSmemMax = 232448;  // shared memory a block may use on the H100
 // words of each of the four arrays of sums; a tile has at most kStride - 1
 // cells, the last one being the spare
@@ -293,12 +294,17 @@ cudaError_t configure(int S, int n, int W, int es, int F, int B, int half, int C
   const int64_t blocks = cdiv(half, NT) * cdiv(F, FT) * C;
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   *kernel = es == 1 ? gbt_hist_kernel<1> : gbt_hist_kernel<2>;
-  static bool attribute_set[2] = {false, false};
-  if (!attribute_set[es - 1]) {
-    const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(*kernel),
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  // a function's attributes belong to a device: set them once on each
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  static bool attribute_set[kMaxDevices][2] = {};
+  if (!attribute_set[device][es - 1]) {
+    err = cudaFuncSetAttribute(reinterpret_cast<const void*>(*kernel), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemMax);
     if (err != cudaSuccess) return err;
-    attribute_set[es - 1] = true;
+    attribute_set[device][es - 1] = true;
   }
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = C;

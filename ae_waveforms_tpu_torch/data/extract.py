@@ -23,6 +23,13 @@ device each (``_window_pass``).
 Host syncs are explicit: one pull a case (or chunk) of everything the host
 needs, plus one a chunk re-run at full width.  ``ExtractionStats`` counts
 them and times the stages where the caller passes one.
+
+Over several devices (``mesh``, a ``parallel.mesh.Grid``; the batched device
+engine only) every rank prepares the same chunks, passes its contiguous
+block of each chunk's windows on its device, and the blocks are gathered
+in window order on every rank, so every rank assembles the same cases in
+case order.  Every rank reads the cache as it stood when the call began;
+rank 0 alone writes it.
 """
 
 from __future__ import annotations
@@ -38,9 +45,11 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.core.config import ExtractionConfig
+from ae_waveforms_tpu_torch.parallel.mesh import Grid, gather_blocks
 from ae_waveforms_tpu_torch.signals.delineate import delineate
 from ae_waveforms_tpu_torch.signals.delineate_device import delineate_batch
 from ae_waveforms_tpu_torch.signals.features import median_feature_row, morphology_features, relative_to_r
@@ -404,21 +413,25 @@ def extract_cases(
     windows_per_batch: int = 512,
     device=None,
     stats: Optional[ExtractionStats] = None,
+    mesh: Optional[Grid] = None,
 ) -> List[CaseResult]:
     """Extract a set of cases on ``device`` (``cuda:0`` unless named).
     ``record_loader`` maps a case id to its record (None skips the case).
 
     ``batched=True`` pools windows across cases into batches of at least
     ``windows_per_batch``; with the device engine it streams chunks of
-    exactly that many.  ``cfg.parallel_preprocessing`` prefetches records
-    on a background thread."""
+    exactly that many, split over the grid's ranks with ``mesh``.
+    ``cfg.parallel_preprocessing`` prefetches records on a background
+    thread."""
     device = resolve_device(device)
+    if mesh is not None and not batched:
+        raise ValueError("mesh sharding applies to the batched device engine only (batched=True)")
     if cfg.parallel_preprocessing:
         uncached = [cid for cid in case_ids if not os.path.exists(_cache_path(cache_dir, cid) or "")]
         record_loader = _prefetching_loader(record_loader, uncached)
     if batched:
         return extract_cases_batched(case_ids, record_loader, cfg, cache_dir, progress, windows_per_batch,
-                                     device, stats)
+                                     device, stats, mesh)
     results = []
     for cid in _progress(case_ids, progress):
         path = _cache_path(cache_dir, cid)
@@ -441,16 +454,22 @@ def extract_cases_batched(
     windows_per_batch: int = 512,
     device=None,
     stats: Optional[ExtractionStats] = None,
+    mesh: Optional[Grid] = None,
 ) -> List[CaseResult]:
     """Cross-case batched pipeline.  The device engine streams (see
-    ``_extract_cases_batched_device``); the host engines pool the windows of
-    whole cases until a group holds ``windows_per_batch`` and run each group
-    as one case would run."""
+    ``_extract_cases_batched_device``), its chunks split over the grid's
+    ranks with ``mesh``; the host engines pool the windows of whole cases
+    until a group holds ``windows_per_batch`` and run each group as one case
+    would run (``mesh`` does not apply: their hot loop is the host
+    delineator)."""
     device = resolve_device(device)
     _check_resample(cfg)
     if cfg.delineation_engine == "device":
         return _extract_cases_batched_device(case_ids, record_loader, cfg, cache_dir, progress,
-                                             windows_per_batch, device, stats)
+                                             windows_per_batch, device, stats, mesh)
+    if mesh is not None:
+        raise ValueError(f"mesh sharding applies to delineation_engine='device' only "
+                         f"(got engine={cfg.delineation_engine!r})")
     results: List[CaseResult] = []
     pending: List[tuple] = []  # (cid, samples, indices)
 
@@ -518,7 +537,8 @@ _INFLIGHT = 2  # chunks issued and not yet pulled
 
 
 def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig, cache_dir, progress,
-                                  windows_per_batch: int, device, stats: Optional[ExtractionStats]) -> List[CaseResult]:
+                                  windows_per_batch: int, device, stats: Optional[ExtractionStats],
+                                  mesh: Optional[Grid] = None) -> List[CaseResult]:
     """Streaming device extraction.  A producer thread loads, filters,
     segments and z-scores records (``_PREP_CHUNK`` at a time) into a
     bounded queue; the main thread cuts the windows into chunks of exactly
@@ -528,8 +548,18 @@ def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig
     ``_INFLIGHT`` chunks issued and not pulled, so the host's
     preparation and issue overlap the device's work.  A pulled chunk whose
     peak counts exceed ``K_LIGHT`` is re-run at the full width.  Results
-    come back in ``case_ids`` order."""
+    come back in ``case_ids`` order.  With ``mesh`` each rank passes its
+    block of every chunk (``windows_per_batch`` must divide evenly over the
+    grid's data axis) and the pulled blocks are gathered; a re-run is
+    decided on the whole chunk."""
     W = windows_per_batch
+    if mesh is not None and W % mesh.data:
+        raise ValueError(f"windows_per_batch={W} must divide evenly over the grid's data axis ({mesh.data} ranks)")
+    # every rank must see the same cache hits: read before any rank writes
+    cached = {cid for cid in case_ids if os.path.exists(_cache_path(cache_dir, cid) or "")}
+    if mesh is not None:
+        dist.barrier()
+    save_dir = cache_dir if mesh is None or mesh.rank == 0 else None
     by_cid: Dict[int, CaseResult] = {}
     case_meta: "deque[tuple]" = deque()  # (cid, n_windows, indices) in window order
     buf: "deque[np.ndarray]" = deque()  # float32 windows awaiting a chunk
@@ -538,24 +568,30 @@ def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig
     avail: "deque[np.ndarray]" = deque()  # pulled rows awaiting their cases
     avail_n = 0
 
+    def window_pass(x: torch.Tensor, slots: int, k_width: Optional[int]) -> torch.Tensor:
+        if len(x) == 0:  # a rank's empty block of a short last chunk
+            return torch.zeros((0, _NPEAKS + 1), device=x.device)
+        return _window_pass(x, cfg, slots, k_width, stats, True)[0]
+
+    def pulled(packed: torch.Tensor) -> np.ndarray:
+        with _stage(stats, "pull"):
+            arr = packed.cpu().numpy()
+            return arr if mesh is None else np.concatenate(gather_blocks(arr, mesh))
+
     def issue(chunk: np.ndarray) -> None:
-        slots = _candidate_slots(chunk)
+        slots = _candidate_slots(chunk)  # the whole chunk's, on every rank
         with _stage(stats, "upload", device):
-            x = torch.from_numpy(chunk).to(device)
-        packed, _ = _window_pass(x, cfg, slots, K_LIGHT, stats, True)
-        inflight.append((len(chunk), packed, x, slots))
+            x = torch.from_numpy(chunk if mesh is None else chunk[mesh.rows(len(chunk))]).to(device)
+        inflight.append((len(chunk), window_pass(x, slots, K_LIGHT), x, slots))
 
     def pull(depth: int) -> None:
         nonlocal avail_n
         while len(inflight) > depth:
             k, packed, x, slots = inflight.popleft()
-            with _stage(stats, "pull"):
-                arr = packed.cpu().numpy()
+            arr = pulled(packed)
             _count(stats, syncs=1)
             if arr[:, _NPEAKS].max(initial=0.0) > K_LIGHT:
-                packed, _ = _window_pass(x, cfg, slots, None, stats, True)
-                with _stage(stats, "pull"):
-                    arr = packed.cpu().numpy()
+                arr = pulled(window_pass(x, slots, None))
                 _count(stats, syncs=1, reruns=1)
             avail.append(arr)
             avail_n += k
@@ -572,7 +608,7 @@ def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig
             valid = kp[:, _VALID] > 0.5
             res = CaseResult(cid, kp[valid, _WAVES].astype(np.float32), kp[valid, _FEATS].astype(np.float64),
                              indices[keep][valid], n)
-            _save_case(cache_dir, cid, res, stats)
+            _save_case(save_dir, cid, res, stats)
             by_cid[cid] = res
 
     q: "queue.Queue[tuple]" = queue.Queue(maxsize=64)
@@ -608,7 +644,7 @@ def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig
                     samples, indices = _windows(rec, cfg)
                 if len(samples) == 0:
                     res = _empty(cid)
-                    _save_case(cache_dir, cid, res, stats)
+                    _save_case(save_dir, cid, res, stats)
                     put(("ready", cid, res))
                 else:
                     put(("case", cid, np.ascontiguousarray(samples, np.float32), indices))
@@ -616,9 +652,8 @@ def _extract_cases_batched_device(case_ids, record_loader, cfg: ExtractionConfig
 
         try:
             for cid in _progress(case_ids, progress):
-                path = _cache_path(cache_dir, cid)
-                if path is not None and os.path.exists(path):
-                    put(("ready", cid, _load_case(path, cid)))
+                if cid in cached:
+                    put(("ready", cid, _load_case(_cache_path(cache_dir, cid), cid)))
                     continue
                 record = record_loader(cid)
                 if record is None:

@@ -23,7 +23,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -174,14 +175,31 @@ def copy_tree_(params: Dict[str, Params], tree) -> None:
             p.copy_(v)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+@dataclass(frozen=True)
+class RowShard:
+    """A generator for a block of a batch's rows: ``dropout`` draws its
+    uniforms for the whole batch of ``batch`` rows and keeps ``rows``, so a
+    batch split over several devices drops what it would drop whole."""
+
+    generator: torch.Generator
+    batch: int
+    rows: slice
+
+
+def dropout(x: torch.Tensor, rate: float, generator, train: bool) -> torch.Tensor:
     """x unchanged in eval or at rate 0; else each value kept with
     probability 1 - rate (a uniform draw below it) and scaled by
-    1/(1 - rate), the rest 0."""
+    1/(1 - rate), the rest 0.  ``generator``: a ``torch.Generator`` on the
+    tensor's device, or a ``RowShard`` of one when x holds a block of the
+    batch's rows."""
     if not train or rate <= 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
     with record_function("dropout"):
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
-        return torch.where(keep, x / (1.0 - rate), 0.0)
+        if isinstance(generator, RowShard):
+            u = torch.rand((generator.batch, *x.shape[1:]), generator=generator.generator,
+                           device=x.device)[generator.rows]
+        else:
+            u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < 1.0 - rate, x / (1.0 - rate), 0.0)

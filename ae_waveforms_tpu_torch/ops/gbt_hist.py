@@ -271,11 +271,12 @@ def left_histograms_fixed(binsT, g, h, node_of, shift, *, half: int, n_bins: int
     plan = hist_plan(S, n, F, n_bins, half, active_clusters(node_of.device.index))
     if packed is None:
         packed = pack_bins(binsT, n_bins)
-    rc = _library().gbt_hist_launch(
-        packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(), out.data_ptr(),
-        S, n, packed.shape[1], _bin_bytes(n_bins), F, n_bins, half, plan.cluster, plan.node_tile,
-        plan.feature_tile, plan.threads, plan.smem_bytes, torch.cuda.current_stream(node_of.device).cuda_stream,
-    )
+    with torch.cuda.device(node_of.device):  # ctypes launches on the thread's current device
+        rc = _library().gbt_hist_launch(
+            packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(), out.data_ptr(),
+            S, n, packed.shape[1], _bin_bytes(n_bins), F, n_bins, half, plan.cluster, plan.node_tile,
+            plan.feature_tile, plan.threads, plan.smem_bytes, torch.cuda.current_stream(node_of.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"gbt_hist kernel launch failed: cudaError_t {rc}")
     left_histograms_fixed.launches += 1

@@ -249,12 +249,13 @@ def _launch(bins_t, node_of, feat, thresh, split, S: int, width: int, levels: in
     if S * n == 0:
         return out
     plan = plan or route_plan(S, n, F, levels, width, _sms(dev.index))
-    rc = _launcher(lib)(
-        bins_t.data_ptr(), bins_t.stride(0), bins_t.stride(1), 0 if node_of is None else node_of.data_ptr(),
-        feat.data_ptr(), thresh.data_ptr(), split.data_ptr(), feat.stride(0), thresh.stride(0), split.stride(0),
-        out.data_ptr(), S, n, F, width, levels, plan.chunk, plan.tile, plan.vec, int(plan.staged), plan.blocks,
-        plan.threads, plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # ctypes launches on the thread's current device
+        rc = _launcher(lib)(
+            bins_t.data_ptr(), bins_t.stride(0), bins_t.stride(1), 0 if node_of is None else node_of.data_ptr(),
+            feat.data_ptr(), thresh.data_ptr(), split.data_ptr(), feat.stride(0), thresh.stride(0), split.stride(0),
+            out.data_ptr(), S, n, F, width, levels, plan.chunk, plan.tile, plan.vec, int(plan.staged), plan.blocks,
+            plan.threads, plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"gbt_route kernel launch failed: cudaError_t {rc}")
     route_rows.launches += 1

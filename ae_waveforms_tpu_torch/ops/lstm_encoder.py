@@ -164,10 +164,11 @@ def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((B, L), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
-    rc = _library().lstm_encoder_launch(
-        x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
-        B, T, H1, H2, L, *plan, torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):  # ctypes launches on the thread's current device
+        rc = _library().lstm_encoder_launch(
+            x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
+            B, T, H1, H2, L, *plan, torch.cuda.current_stream(x.device).cuda_stream,
+        )
     if rc != 0:
         raise RuntimeError(f"lstm_encoder kernel launch failed: cudaError_t {rc}")
     encode_fused.launches += 1

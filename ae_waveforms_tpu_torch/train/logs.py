@@ -52,9 +52,10 @@ def setup_logging(results_dir: str) -> logging.Logger:
 
 
 class CsvLogs:
-    """training_log.csv / training_log_validation.csv writers."""
+    """training_log.csv / training_log_validation.csv writers; with
+    ``results_dir`` None (a rank that writes no files) they write nothing."""
 
-    def __init__(self, results_dir: str):
+    def __init__(self, results_dir: Optional[str]):
         self.dir = results_dir
         self._train_rows = []
 
@@ -63,7 +64,8 @@ class CsvLogs:
         self._train_rows.append([epoch, step, lr, loss])
 
     def flush_train(self) -> None:
-        if not self._train_rows:
+        if not self._train_rows or self.dir is None:
+            self._train_rows.clear()
             return
         with open(os.path.join(self.dir, "training_log.csv"), "a", newline="") as f:
             csv.writer(f).writerows(self._train_rows)
@@ -71,6 +73,8 @@ class CsvLogs:
 
     def validation(self, epoch: int, step: int, lr: float, train_loss: float, val_loss: float) -> None:
         self.flush_train()
+        if self.dir is None:
+            return
         with open(os.path.join(self.dir, "training_log_validation.csv"), "a", newline="") as f:
             csv.writer(f).writerow([epoch, step, lr, train_loss, val_loss])
 

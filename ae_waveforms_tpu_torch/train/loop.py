@@ -22,10 +22,27 @@ global ``np.random`` stream seeded with ``cfg.seed``, as in the JAX package,
 so they are equal there and here; init and dropout draw from
 ``torch.Generator``s seeded with ``cfg.seed``, which cannot give
 ``jax.random``'s numbers.
+
+Over several devices (``mesh``, a ``parallel.mesh.Grid`` of the ranks that
+``parallel.launch.run`` started, one a device) each step splits its batch
+over the grid's data axis, as the JAX package shards it over 'data', and
+sharding changes no result beyond the order of sums: every rank draws the
+same batch order and the same initial weights, and draws each dropout mask
+for the whole batch from the one generator before it keeps its own rows
+(``layers.RowShard``).  A rank's loss is its rows' share of the batch mean,
+Σ_rows(per·w) / Σ_batch(w); its gradients and that share go through one
+all-reduce SUM of a flat buffer over the data group, after which the
+optimizer runs identically on every rank.  Validation sums its totals and
+counts the same way.  The model is replicated over the model axis, whose
+ranks compute the same rows.  Rank 0 alone writes files (the run dir, the
+logs, the checkpoints and the split masks, which it draws and hands to
+the other ranks with the global ``np.random`` state).
 """
 
 from __future__ import annotations
 
+import functools
+import logging
 import math
 import os
 import time
@@ -39,7 +56,9 @@ from torch.profiler import record_function
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
 from ae_waveforms_tpu_torch.core.config import TrainConfig
 from ae_waveforms_tpu_torch.core.schema import ArraySet, load_arrays
+from ae_waveforms_tpu_torch.models.layers import RowShard
 from ae_waveforms_tpu_torch.models.registry import model_def
+from ae_waveforms_tpu_torch.parallel.mesh import Grid, all_reduce_sum_, broadcast_object
 from ae_waveforms_tpu_torch.train import checkpoint as ckpt
 from ae_waveforms_tpu_torch.train.data import layout_waves, split_datasets
 from ae_waveforms_tpu_torch.train.logs import CsvLogs, make_tracker, setup_logging
@@ -50,16 +69,16 @@ from ae_waveforms_tpu_torch.train.schedules import (
     cosine_annealing_warmup_hard_restarts,
 )
 
-__all__ = ["main_train", "batch_loss", "train_step", "validate", "effective_epochs", "require_single_device"]
+__all__ = ["main_train", "batch_loss", "train_step", "sharded_train_step", "validate", "effective_epochs",
+           "require_float32"]
 
 
-def require_single_device(cfg: TrainConfig) -> None:
-    """The port trains on one device; more belong to a later slice."""
-    if cfg.n_devices > 1 or cfg.model_parallel > 1:
-        raise NotImplementedError(
-            "--n_devices and --model_parallel above 1: training over several devices is the multi-device "
-            "slice of the port (ROADMAP.md, queue 1, item 11); run with --n_devices 0 --model_parallel 1"
-        )
+def require_float32(cfg: TrainConfig) -> None:
+    """The port trains in full float32 (cuDNN inside ``cudnn_fp32``), the
+    JAX package's "float32" (its parity mode) and, on the card, its
+    "default"; a lower precision raises."""
+    if cfg.compute_dtype not in ("default", None, "float32"):
+        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: the port trains in float32 only")
 
 
 def _elementwise_loss(kind: str, pred: torch.Tensor, true: torch.Tensor) -> torch.Tensor:
@@ -109,20 +128,28 @@ def _batched_indices(n: int, batch: int, perm: np.ndarray) -> Tuple[np.ndarray, 
     return padded.reshape(steps, batch), mask.reshape(steps, batch)
 
 
-def batch_loss(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
-               generator: torch.Generator, rate: float, loss_kind: str) -> torch.Tensor:
-    """The loss of the batch ``data_x[idx]`` through ``model`` in its
-    current mode (padding rows, mask False, weigh nothing), with its
-    autograd graph.  The gather and the loss are marked "gather and loss"
-    for ``torch.profiler``."""
+def _weighted_total(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, generator,
+                    rate: float, loss_kind: str) -> torch.Tensor:
+    """Σ over the rows ``data_x[idx]`` of each row's mean elementwise loss
+    through ``model`` times its mask (padding rows, mask False, weigh
+    nothing), with its autograd graph.  The gather and the loss are marked
+    "gather and loss" for ``torch.profiler``."""
     with record_function("gather and loss"):
         x = data_x.index_select(0, idx)
         w = mask.to(x.dtype)
     pred = model(x, rate, generator)
     with record_function("gather and loss"):
         elem = _elementwise_loss(loss_kind, pred, x)
-        per = elem.reshape(elem.shape[0], -1).mean(dim=1)
-        return _finalize_loss(loss_kind, (per * w).sum() / w.sum().clamp_min(1.0), 1.0)
+        return (elem.reshape(elem.shape[0], -1).mean(dim=1) * w).sum()
+
+
+def batch_loss(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor,
+               generator: torch.Generator, rate: float, loss_kind: str) -> torch.Tensor:
+    """The loss of the batch ``data_x[idx]`` through ``model`` in its
+    current mode, with its autograd graph."""
+    total = _weighted_total(model, data_x, idx, mask, generator, rate, loss_kind)
+    with record_function("gather and loss"):
+        return _finalize_loss(loss_kind, total / mask.to(total.dtype).sum().clamp_min(1.0), 1.0)
 
 
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
@@ -142,22 +169,53 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch
     return loss.detach()
 
 
-def validate(model: nn.Module, val_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, loss_kind: str) -> float:
+def sharded_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
+                       mask: torch.Tensor, lr: float, generator: torch.Generator, rate: float, loss_kind: str,
+                       grid: Grid) -> torch.Tensor:
+    """``train_step`` of the whole batch ``data_x[idx]`` with this rank's
+    block of its rows (``grid.rows``): dropout drawn for the whole batch,
+    this rank's share of the batch mean, its gradients and that share
+    summed over the data group in one all-reduce, then the optimizer.
+    Returns the batch's loss before the update, on the device."""
+    rows = grid.rows(idx.shape[0])
+    total = _weighted_total(model, data_x, idx[rows], mask[rows], RowShard(generator, idx.shape[0], rows), rate,
+                            loss_kind)
+    share = total / mask.to(total.dtype).sum().clamp_min(1.0)
+    optimizer.zero_grad(set_to_none=False)
+    with cudnn_fp32():
+        share.backward()
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    mean = share.detach().reshape(1)
+    all_reduce_sum_([*(p.grad for p in params), mean], grid.data_group)
+    if loss_kind == "rmse":  # d sqrt(m) = dm / (2 sqrt(m)): the chain rule after the sum
+        torch._foreach_mul_([p.grad for p in params], 0.5 / torch.sqrt(mean[0]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    optimizer.step()
+    return _finalize_loss(loss_kind, mean[0], 1.0)
+
+
+def validate(model: nn.Module, val_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, loss_kind: str,
+             grid: Optional[Grid] = None) -> float:
     """The loss over every unmasked row, the model in eval mode (the fused
     encoder kernel on the card) under no_grad; the model is left in train
-    mode."""
-    total = torch.zeros((), device=val_x.device)
-    count = torch.zeros((), device=val_x.device)
+    mode.  With ``grid``, this rank's block of each batch's rows, the
+    totals summed over the data group."""
+    sums = torch.zeros(2, device=val_x.device)  # total, count
     model.eval()
     with torch.no_grad():
         for bidx, bmask in zip(idx, mask):
+            if grid is not None:
+                rows = grid.rows(bidx.shape[0])
+                bidx, bmask = bidx[rows], bmask[rows]
             x = val_x.index_select(0, bidx)
             elem = _elementwise_loss(loss_kind, model(x), x)
             w = bmask.to(x.dtype)[:, None, None]
-            total = total + torch.sum(elem * w)
-            count = count + torch.sum(w) * elem.shape[1] * elem.shape[2]
+            sums = sums + torch.stack([torch.sum(elem * w), torch.sum(w) * elem.shape[1] * elem.shape[2]])
     model.train()
-    return float(_finalize_loss(loss_kind, total, count))
+    if grid is not None:
+        all_reduce_sum_([sums], grid.data_group)
+    return float(_finalize_loss(loss_kind, sums[0], sums[1]))
 
 
 def main_train(
@@ -168,9 +226,12 @@ def main_train(
     profile_dir: Optional[str] = None,
     device=None,
     init_params: Optional[Dict] = None,
+    mesh: Optional[Grid] = None,
 ) -> str:
     """Train an autoencoder on ``device`` (the first CUDA device unless
-    named); returns the results directory.
+    named); returns the results directory.  With ``mesh``, this rank's part
+    of a run over the grid's ranks (see the module docstring); every rank
+    returns rank 0's results directory.
 
     ``resume_dir``: a previous run's results dir of this package — the full
     train state (params + optimizer + dropout generator + step) is restored
@@ -182,15 +243,20 @@ def main_train(
     """
     t_start = time.time()
     np.random.seed(cfg.seed)
-    require_single_device(cfg)
-    if cfg.compute_dtype not in ("default", None):
-        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: the port trains in float32 only")
+    require_float32(cfg)
     device = resolve_device(device)
+    if mesh is not None and cfg.batch_size < mesh.data:
+        raise ValueError(f"batch_size {cfg.batch_size} gives a rank no rows over {mesh.data} data ranks")
+    writer = mesh is None or mesh.rank == 0  # the rank that writes files
 
-    run_id = time.strftime("%y-%m-%d-%H%M%S")
-    results_dir = os.path.join(cfg.results_dir, "networks_autoencoder", run_id)
-    os.makedirs(results_dir, exist_ok=True)
-    logger = setup_logging(results_dir)
+    results_dir = None
+    if writer:
+        run_id = time.strftime("%y-%m-%d-%H%M%S")
+        results_dir = os.path.join(cfg.results_dir, "networks_autoencoder", run_id)
+        os.makedirs(results_dir, exist_ok=True)
+    if mesh is not None:
+        results_dir = broadcast_object(results_dir)
+    logger = setup_logging(results_dir) if writer else logging.getLogger("train")
     tags = [
         cfg.model_class, f"latent_size={cfg.latent_size}", f"batch_size={cfg.batch_size}",
         f"lr={cfg.lr}", cfg.lr_scheduler_type, f"validation_interval={cfg.validation_interval}",
@@ -198,22 +264,28 @@ def main_train(
         f"dropout={cfg.dropout}", f"weight_decay={cfg.weight_decay}", f"seed={cfg.seed}",
         f"dataset_dir={cfg.dataset_dir}", f"nr_train_ids={cfg.nr_train_ids}",
     ]
-    tracker = make_tracker(cfg.tracker, results_dir, tags)
-    csvlog = CsvLogs(results_dir)
+    tracker = make_tracker(cfg.tracker if writer else None, results_dir, tags)
+    csvlog = CsvLogs(results_dir if writer else None)
 
     mdef = model_def(cfg.model_class)
     model = mdef.build(cfg.latent_size, generator=torch.Generator().manual_seed(cfg.seed), device=device)
     if init_params is not None:
         model.load_jax_tree(init_params)
     model.train()
-    ckpt.save_state(os.path.join(results_dir, "model_init.npz"), model.jax_tree())
+    if writer:
+        ckpt.save_state(os.path.join(results_dir, "model_init.npz"), model.jax_tree())
 
     logger.info(f"Start loading data from dataset version: {cfg.dataset_dir}")
     if arrays is None:
         arrays = load_arrays(cfg.dataset_dir)
-    tr_mask, va_mask, te_mask = split_datasets(
-        arrays.info, cfg.dataset_dir, results_dir, cfg.split_size_val, cfg.split_size_test, cfg.nr_train_ids
-    )
+    split = None
+    if writer:
+        split = split_datasets(arrays.info, cfg.dataset_dir, results_dir, cfg.split_size_val, cfg.split_size_test,
+                               cfg.nr_train_ids), np.random.get_state()
+    if mesh is not None:  # the masks, and the stream the batch order draws from, as rank 0 left them
+        split = broadcast_object(split)
+        np.random.set_state(split[1])
+    tr_mask, va_mask, te_mask = split[0]
     logger.info(f"Data loading done. Length of Data: {len(arrays)} samples")
 
     n_train = int(tr_mask.sum())
@@ -265,6 +337,7 @@ def main_train(
 
     logger.info(f"Start training with learning rate scheduler: {cfg.lr_scheduler_type}")
     V = cfg.validation_interval
+    step = train_step if mesh is None else functools.partial(sharded_train_step, grid=mesh)
     for epoch in range(1, epochs + 1):
         t_epoch = time.time()
         tracker.log("epoch", epoch)
@@ -284,11 +357,11 @@ def main_train(
             lr_scale = torch.tensor(0.5**lr_events if is_steplr else 1.0, dtype=torch.float32)
             first_chunk = epoch == 1 and local == 0
             losses, lrs = [], []
-            with trace(profile_dir if first_chunk else None):
+            with trace(profile_dir if first_chunk and writer else None):
                 for j in range(n_steps):
                     lr_t = float(schedule(global_step + j) * lr_scale)
-                    losses.append(train_step(model, optimizer, train_x, idx_all[local + j], mask_all[local + j],
-                                             lr_t, generator, cfg.dropout, cfg.loss))
+                    losses.append(step(model, optimizer, train_x, idx_all[local + j], mask_all[local + j],
+                                       lr_t, generator, cfg.dropout, cfg.loss))
                     lrs.append(lr_t)
             losses = torch.stack(losses).cpu().numpy()  # the chunk's one wait for the device
             for j in range(n_steps):
@@ -305,7 +378,7 @@ def main_train(
             lr_current = lrs[-1]
 
             if last_local % V == 0:
-                val_loss = validate(model, val_x, val_idx, val_m, cfg.loss)
+                val_loss = validate(model, val_x, val_idx, val_m, cfg.loss, mesh)
                 logger.info(f"[Epoch: {epoch}, step: {last_local}] / lr = {lr_current}")
                 logger.info(f"\tTrain loss: {train_loss_local}, \t Validation loss: {val_loss}")
                 csvlog.validation(epoch, last_local, lr_current, train_loss_local, val_loss)
@@ -321,9 +394,10 @@ def main_train(
 
                 # early stopping + rolling best checkpoint
                 if val_loss < valid_loss_min:
-                    state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                             "generator": generator.get_state(), "step": global_step}
-                    best_path = ckpt.save_best(results_dir, val_loss, state, params=model.jax_tree())
+                    if writer:
+                        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                                 "generator": generator.get_state(), "step": global_step}
+                        best_path = ckpt.save_best(results_dir, val_loss, state, params=model.jax_tree())
                     valid_loss_min = val_loss
                     patience_counter = 0
                 else:
@@ -344,10 +418,11 @@ def main_train(
             break
 
     # final model: best params if any, else current (run_train.py:537-538)
-    final_params = model.jax_tree()
-    if best_path is not None:
-        final_params = ckpt.load_state(best_path.replace(".npz", "_params.npz"), final_params)
-    ckpt.save_state(os.path.join(results_dir, "model_autoencoder.npz"), final_params)
+    if writer:
+        final_params = model.jax_tree()
+        if best_path is not None:
+            final_params = ckpt.load_state(best_path.replace(".npz", "_params.npz"), final_params)
+        ckpt.save_state(os.path.join(results_dir, "model_autoencoder.npz"), final_params)
     logger.info(f"Training is finished. Best validation loss: {valid_loss_min}")
     logger.info(f"Execution finished and saved at: {results_dir} ({time.time() - t_start:.1f}s)")
     csvlog.close()

@@ -33,6 +33,14 @@ atomically; ``resume_dir`` continues from it bit for bit.  The format is
 the port's own (``torch.save`` bytes in an ``.npz``, beside the JAX
 package's ``.meta.json``): the JAX package's state holds ``jax.random``
 keys and optax state, so neither package resumes the other's.
+
+With ``mesh`` (a ``parallel.mesh.Grid``), the config axis is split over the
+grid's data axis in contiguous blocks: rank 0 draws the split (and writes
+its masks) and hands it to the others, each rank trains its block as one
+run of its own (its checkpoints tagged with its data index, the memory cap
+applied to its block), and the blocks' results are gathered in config
+order on every rank, where rank 0 writes the run dirs.  Every config has
+its own generators and batch order, so the split changes no result.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from ae_waveforms_tpu_torch.bridge import tree_to_numpy
 from ae_waveforms_tpu_torch.core.config import TrainConfig
 from ae_waveforms_tpu_torch.core.schema import ArraySet, load_arrays
 from ae_waveforms_tpu_torch.models.registry import model_def
+from ae_waveforms_tpu_torch.parallel.mesh import Grid, broadcast_object, gather_blocks
 from ae_waveforms_tpu_torch.train import checkpoint as ckpt
 from ae_waveforms_tpu_torch.train.data import draw_split_masks, layout_waves, split_datasets
 from ae_waveforms_tpu_torch.train.loop import (
@@ -63,7 +72,7 @@ from ae_waveforms_tpu_torch.train.loop import (
     _lr_schedule,
     batch_loss,
     effective_epochs,
-    require_single_device,
+    require_float32,
     validate,
 )
 from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
@@ -170,6 +179,53 @@ def _merge_multi_results(parts: List[MultiTrainResult]) -> MultiTrainResult:
     )
 
 
+def _draw_split(cfg: TrainConfig, arrays: ArraySet, seeds: Sequence[int], per_config_splits: bool,
+                mask_dir: str) -> Dict:
+    """The configs' patient split: with ``per_config_splits`` each config's
+    own draw under its seed (no files), its train and validation rows cut
+    to the smallest count of any config; else one split for every config,
+    drawn from ``cfg.seed`` as ``main_train`` draws it, its masks written
+    to ``mask_dir``."""
+    if per_config_splits:
+        # the sequential study's draw under each seed (np.random.seed, then the patient-level split)
+        per_masks = []
+        for s_ in seeds:
+            np.random.seed(s_)
+            per_masks.append(draw_split_masks(arrays.info[:, 0], cfg.split_size_val, cfg.split_size_test,
+                                              cfg.nr_train_ids))
+        n_train = min(int(m["train"].sum()) for m in per_masks)
+        n_val = min(int(m["val"].sum()) for m in per_masks)
+        split = dict(per_masks=per_masks, n_train=n_train, n_val=n_val,
+                     train_rows=np.stack([np.flatnonzero(m["train"])[:n_train] for m in per_masks]).astype(np.int32),
+                     val_rows=np.stack([np.flatnonzero(m["val"])[:n_val] for m in per_masks]).astype(np.int32))
+    else:
+        np.random.seed(cfg.seed)
+        tr_mask, va_mask, _ = split_datasets(arrays.info, cfg.dataset_dir, mask_dir, cfg.split_size_val,
+                                             cfg.split_size_test, cfg.nr_train_ids)
+        split = dict(tr_mask=tr_mask, va_mask=va_mask, n_train=int(tr_mask.sum()), n_val=int(va_mask.sum()))
+    if split["n_train"] == 0 or split["n_val"] == 0:
+        raise ValueError(f"empty split (train={split['n_train']}, val={split['n_val']})")
+    return split
+
+
+def _split_block(split: Dict, rows: slice) -> Dict:
+    """The configs ``rows`` of a ``_draw_split`` split."""
+    return {k: v[rows] if k in ("per_masks", "train_rows", "val_rows") else v for k, v in split.items()}
+
+
+def _per_cfg_masks(split: Dict, n: int) -> List[dict]:
+    """Each config's train, validation and test masks over the n rows of a
+    per-config split (its cut rows, its own test draw)."""
+    out = []
+    for s in range(len(split["per_masks"])):
+        m = {k: np.zeros(n, bool) for k in ("train", "val")}
+        m["train"][split["train_rows"][s]] = True
+        m["val"][split["val_rows"][s]] = True
+        m["test"] = split["per_masks"][s]["test"]
+        out.append(m)
+    return out
+
+
 def _multi_ckpt_paths(dir_: str, latent_size: int, tag: str = "") -> Tuple[str, str]:
     # keyed by latent size and group tag, so grouped runs in one results_dir keep their own
     base = os.path.join(dir_, f"multi_checkpoint_d{latent_size}{tag}")
@@ -224,7 +280,9 @@ def train_ae_multi(
     max_config_chunk: Optional[int] = None,
     device=None,
     init_params: Optional[Dict] = None,
+    mesh: Optional[Grid] = None,
     _ckpt_tag: str = "",
+    _split: Optional[Dict] = None,
 ) -> MultiTrainResult:
     """Train ``len(seeds)`` configurations of ``cfg.model_class`` at
     ``cfg.latent_size`` together on ``device`` (the first CUDA device
@@ -241,7 +299,10 @@ def train_ae_multi(
     trained at once; a wider call splits into balanced groups trained one
     after another (None: ``core.hbm``'s cap on a CUDA device, none on the
     CPU; 0: none).  ``init_params``: the configs' initial parameters as
-    one JAX-named tree of (S, ...) arrays."""
+    one JAX-named tree of (S, ...) arrays.  ``mesh``: this rank's part of
+    a run whose config axis is split over the grid's ranks (see the module
+    docstring); every rank returns the whole result.  ``_split``: the
+    split of these configs drawn by the caller (``_draw_split``)."""
     seeds = [int(s) for s in seeds]
     S = len(seeds)
     if S == 0:
@@ -251,13 +312,36 @@ def train_ae_multi(
         raise ValueError("lr_multipliers must match seeds")
     if checkpoint_every is not None and results_dir is None:
         raise ValueError("checkpoint_every needs results_dir (checkpoint home)")
-    require_single_device(cfg)
-    if cfg.compute_dtype not in ("default", None):
-        raise NotImplementedError(f"compute_dtype {cfg.compute_dtype!r}: the port trains in float32 only")
+    require_float32(cfg)
     device = resolve_device(device)
     mdef = model_def(cfg.model_class)
     if arrays is None:
         arrays = load_arrays(cfg.dataset_dir)
+
+    if mesh is not None:
+        writer = mesh.rank == 0
+        mask_dir = (results_dir or tempfile.mkdtemp(prefix="ae_multi_")) if writer else None
+        if writer:
+            os.makedirs(mask_dir, exist_ok=True)
+        split = broadcast_object(_draw_split(cfg, arrays, seeds, per_config_splits, mask_dir) if writer else None)
+        rows = mesh.rows(S)
+        part = None
+        if rows.stop > rows.start:
+            part = train_ae_multi(
+                cfg, seeds[rows], arrays=arrays, lr_multipliers=lr_mults[rows], max_steps=max_steps,
+                segments_per_dispatch=segments_per_dispatch, results_dir=results_dir,
+                per_config_splits=per_config_splits, checkpoint_every=checkpoint_every, resume_dir=resume_dir,
+                max_config_chunk=max_config_chunk, device=device,
+                init_params=None if init_params is None else stack_trees(unstack_tree(init_params)[rows]),
+                _ckpt_tag=f"{_ckpt_tag}-r{mesh.data_index}", _split=_split_block(split, rows))
+        result = _merge_multi_results([p for p in gather_blocks(part, mesh) if p is not None])
+        if save_runs:
+            run_dirs = None
+            if writer:
+                per_cfg = _per_cfg_masks(split, len(arrays.info)) if per_config_splits else None
+                run_dirs = _save_multi_runs(cfg, result, mask_dir, per_cfg_masks=per_cfg)
+            result.run_dirs = broadcast_object(run_dirs)
+        return result
 
     if max_config_chunk is None:
         max_config_chunk = 0
@@ -278,41 +362,21 @@ def train_ae_multi(
                 segments_per_dispatch=segments_per_dispatch, results_dir=results_dir, save_runs=save_runs,
                 per_config_splits=per_config_splits, checkpoint_every=checkpoint_every, resume_dir=resume_dir,
                 max_config_chunk=0, device=device, init_params=None if inits is None else stack_trees(inits[sl]),
-                _ckpt_tag=f"{_ckpt_tag}-g{gi}"))
+                _ckpt_tag=f"{_ckpt_tag}-g{gi}", _split=None if _split is None else _split_block(_split, sl)))
         return _merge_multi_results(parts)
 
     mask_dir = results_dir or tempfile.mkdtemp(prefix="ae_multi_")
     os.makedirs(mask_dir, exist_ok=True)
-
-    per_masks = train_rows = val_rows = None
-    if per_config_splits:
-        # the sequential study's draw under each seed (np.random.seed, then the patient-level split)
-        per_masks = []
-        for s_ in seeds:
-            np.random.seed(s_)
-            per_masks.append(draw_split_masks(arrays.info[:, 0], cfg.split_size_val, cfg.split_size_test,
-                                              cfg.nr_train_ids))
-        n_train = min(int(m["train"].sum()) for m in per_masks)
-        n_val = min(int(m["val"].sum()) for m in per_masks)
-        if n_train == 0 or n_val == 0:
-            raise ValueError(f"empty split (train={n_train}, val={n_val})")
-        train_rows = np.stack([np.flatnonzero(m["train"])[:n_train] for m in per_masks]).astype(np.int32)
-        val_rows = np.stack([np.flatnonzero(m["val"])[:n_val] for m in per_masks]).astype(np.int32)
-    else:
-        # one split for every configuration, drawn from cfg.seed as main_train draws it
-        np.random.seed(cfg.seed)
-        tr_mask, va_mask, _ = split_datasets(arrays.info, cfg.dataset_dir, mask_dir, cfg.split_size_val,
-                                             cfg.split_size_test, cfg.nr_train_ids)
-        n_train, n_val = int(tr_mask.sum()), int(va_mask.sum())
-        if n_train == 0 or n_val == 0:
-            raise ValueError(f"empty split (train={n_train}, val={n_val})")
+    split = _split if _split is not None else _draw_split(cfg, arrays, seeds, per_config_splits, mask_dir)
+    n_train, n_val = split["n_train"], split["n_val"]
+    train_rows, val_rows = split.get("train_rows"), split.get("val_rows")
 
     x_all = layout_waves(np.asarray(arrays.waves, np.float32), mdef.channel_first)
     if per_config_splits:  # one copy of the dataset; each config gathers its own rows by absolute index
         train_x = val_x = torch.from_numpy(np.ascontiguousarray(x_all)).to(device)
     else:
-        train_x = torch.from_numpy(np.ascontiguousarray(x_all[tr_mask])).to(device)
-        val_x = torch.from_numpy(np.ascontiguousarray(x_all[va_mask])).to(device)
+        train_x = torch.from_numpy(np.ascontiguousarray(x_all[split["tr_mask"]])).to(device)
+        val_x = torch.from_numpy(np.ascontiguousarray(x_all[split["va_mask"]])).to(device)
 
     models = []
     inits = None if init_params is None else unstack_tree(init_params)
@@ -464,17 +528,8 @@ def train_ae_multi(
         lr_multipliers=lr_mult,
     )
     if save_runs:
-        per_cfg_masks = None
-        if per_config_splits:
-            N = len(arrays.info)
-            per_cfg_masks = []
-            for s in range(S):
-                m = {k: np.zeros(N, bool) for k in ("train", "val")}
-                m["train"][train_rows[s]] = True
-                m["val"][val_rows[s]] = True
-                m["test"] = per_masks[s]["test"]
-                per_cfg_masks.append(m)
-        result.run_dirs = _save_multi_runs(cfg, result, mask_dir, per_cfg_masks=per_cfg_masks)
+        per_cfg = _per_cfg_masks(split, len(arrays.info)) if per_config_splits else None
+        result.run_dirs = _save_multi_runs(cfg, result, mask_dir, per_cfg_masks=per_cfg)
     return result
 
 

@@ -137,6 +137,22 @@ Phases, each of which fails the run:
    together against each alone on the card (bit-identical) and on the CPU
    (phase 8's tolerances), and a run resumed from its checkpoint against
    the uninterrupted one (bit-identical).
+12. several ranks (``parallel/``, one process a rank, on phase 8's beats):
+   (a) one NCCL rank on cuda:0 runs 20 sharded train steps of the default
+   LSTM AE at B=128 (``sharded_train_step``: dropout drawn for the whole
+   batch, one all-reduce of the gradients and the loss), held against the
+   same 20 single-device steps in this process (losses within 1e-5
+   relative, params within rtol 2e-4 + atol 2e-5); prints ms per step
+   beside phase 8's, the all-reduce's time on the gradient buffer and the
+   MFU (``core/flops.py``; also printed for phases 8, 9 and 11).  (b) two
+   gloo ranks sharing cuda:0 (NCCL refuses two ranks on one card; their
+   times are no measurement of a user path): the AE step split 64 + 64
+   (losses 2e-5), an 8-seed fit of 100 depth-6 trees split 4 + 4 (exact), 2 configs of
+   ``train_ae_multi`` (bit-identical), a 2-record extraction in chunks of
+   8 windows (byte-equal) and the tensor-parallel pair on a (1, 2) grid
+   against the unsharded MLP (1e-6; its SGD step 1e-5 + 1e-6), each against
+   its one-device run.  The ranks' launches of K1, K2 and K3 join the
+   ``kernels`` line; each must be above 0.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -218,6 +234,21 @@ def bound(nbytes: float, flops: float):
     """Least time (ms) the card could take, and what bounds it."""
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOP_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def train_flops(model_class: str) -> int:
+    """FLOPs of a train step a beat of ``model_class`` at latent 10 (core/flops.py)."""
+    from ae_waveforms_tpu_torch.core import flops
+
+    return (flops.lstm_ae_train_flops_per_sample() if model_class == "LSTMAutoencoder"
+            else flops.conv_ae_train_flops_per_sample())
+
+
+def mfu_of(torch, step_flops: float, ms: float) -> float:
+    """A step's achieved FLOP/s over this card's float32 peak (core/flops.py's table)."""
+    from ae_waveforms_tpu_torch.core import flops
+
+    return flops.mfu(step_flops / (ms * 1e-3), torch.cuda.get_device_name(0))
 
 
 R_SAMPLE = 106  # the R peak's sample in a beat, a third of it, as the extractor cuts them
@@ -935,10 +966,10 @@ def instrumented_train(torch, args):
         steps.append((start, end, loss, a[4]))
         return loss
 
-    def timed_validate(model, val_x, idx, mask, kind):
+    def timed_validate(model, val_x, idx, mask, *a):
         torch.cuda.synchronize()
         before, t0 = encode_fused.launches, time.perf_counter()
-        out = orig_validate(model, val_x, idx, mask, kind)
+        out = orig_validate(model, val_x, idx, mask, *a)
         validations.append(((time.perf_counter() - t0) * 1e3, encode_fused.launches - before, len(idx)))
         return out
 
@@ -984,6 +1015,8 @@ def training_readings(torch, tag: str, rec, model_class: str, groups, batch: int
           f"the profiled steps in {float(np.median(step_ms[10:])):.4f}); host ms "
           f"to issue a step min {np.min(host_ms[timed]):.4f}, p50 {np.median(host_ms[timed]):.4f} "
           f"(the host waits where the card's queue is full)")
+    print(f"[{tag}] MFU at the p50 step: {mfu_of(torch, train_flops(model_class) * batch, p50):.5f} of the card's "
+          f"float32 peak (core/flops.py: {train_flops(model_class) * batch / 1e9:.3f} GFLOP a step of B={batch})")
     print(f"[{tag}] {len(validations)} validations of {validations[0][2]} batches: ms per validation p50 "
           f"{float(np.median(val_ms)):.3f} (wall, synchronised); validation loss {val_losses[0]:.6f} -> "
           f"{val_losses[-1]:.6f}")
@@ -2071,6 +2104,11 @@ def phase_dl(torch, dev, work):
           f"{np.median(ms):.3f}, min {ms.min():.3f}, max {ms.max():.3f} ({np.median(ms) / DL_SEEDS:.3f} a seed); "
           f"idle share over steps {STEP_WINDOW[0]} to "
           f"{STEP_WINDOW[1] - 1} {steps.idle_share():.3f}")
+    from ae_waveforms_tpu_torch.core import flops
+
+    print(f"[many] DL stacked step of {DL_SEEDS} seeds at B=512: MFU at the p50 "
+          f"{mfu_of(torch, DL_SEEDS * 512 * 3 * flops.dl_classifier_fwd_flops_per_sample(T_BEAT), np.median(ms)):.5f}"
+          f" of the float32 peak")
     print(f"[many] DL sweep median AUC by size: " + ", ".join(f"{r['size']} {r['median_auc']:.4f} (IQR {r['q1']:.4f}-"
                                                               f"{r['q3']:.4f})" for r in summary))
     check([r["size"] for r in summary] == [DL_SMALL, DL_BIG], "DL sweep sizes")
@@ -2086,6 +2124,8 @@ def phase_dl(torch, dev, work):
 
 def multi_readings(torch, tag: str, steps: StepTimer, S: int, wall: float, single_ms: float) -> None:
     ms = steps.ms(lambda i: steps.calls[i][2] == S)
+    print(f"[many] {tag}: MFU at the p50 stacked step "
+          f"{mfu_of(torch, S * 128 * train_flops('LSTMAutoencoder'), float(np.median(ms))):.5f} of the float32 peak")
     print(f"[many] {tag}: {len(steps.calls)} stacked steps of {S} configs in {wall:.3f} s wall (the CLI, data and "
           f"run dirs included); ms per stacked step (CUDA events) p50 {np.median(ms):.3f}, min {ms.min():.3f}, "
           f"max {ms.max():.3f}, beside {S} x phase 8's step {S * single_ms:.3f}; {S / np.median(ms) * 1e3:.1f} "
@@ -2206,6 +2246,113 @@ def phase_many_models(torch, dev, lstm):
     return phase_multi(torch, dev, lstm)
 
 
+# phase 12: several ranks; (a) one NCCL rank on the card, (b) two gloo ranks sharing the card
+PAR_STEPS = 20  # sharded steps of (a), at phase 8's B=128 on phase 8's beats
+PAR_TIMED_FROM = 2  # steps before this one warm up (cuDNN plans, NCCL's first all-reduce)
+PAR_B_JOBS = [
+    ("ae", 1, dict(latent=10, batch=128, optimizer="adam", steps=4)),
+    ("gbt", 1, dict(n_seeds=8, n_per=2500, F=10, params=dict(GBT_PARAMS, gamma=0.0, min_child_weight=1.0,
+                                                             subsample=0.8, colsample_bytree=0.8))),
+    ("multi", 1, dict(seeds=[3, 4], n_beats=192, n_cases=12, latent=10)),
+    ("extract", 1, dict(n_records=2, duration_s=180.0, windows_per_batch=8)),
+    ("tp", 2, None),  # the pair on the (1, 2) grid; its inputs are made in phase_multichip
+]
+
+
+def tp_inputs(rng, d_in: int = 64, hidden: int = 256, n: int = 128):
+    params = {"w1": (rng.standard_normal((d_in, hidden)) * 0.1).astype(np.float32), "b1": np.zeros(hidden, np.float32),
+              "w2": (rng.standard_normal((hidden, 1)) * 0.1).astype(np.float32), "b2": np.zeros(1, np.float32)}
+    return dict(params=params, x=rng.standard_normal((n, d_in)).astype(np.float32),
+                y=rng.standard_normal(n).astype(np.float32), lr=0.1)
+
+
+def tp_unsharded(torch, dev, params, x, y, lr):
+    """The pair's MLP on one device: its output and one SGD step's params and loss."""
+    p = {k: torch.as_tensor(v, device=dev).requires_grad_(True) for k, v in params.items()}
+    xt, yt = torch.as_tensor(x, device=dev), torch.as_tensor(y, device=dev)
+    out = torch.relu(xt @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"]
+    loss = torch.mean(torch.square(out[:, 0] - yt))
+    loss.backward()
+    return out.detach().cpu().numpy(), {k: (v - lr * v.grad).detach().cpu().numpy() for k, v in p.items()}, loss.item()
+
+
+def ae_close(got, want):
+    """The largest relative loss difference and the largest parameter
+    difference beyond rtol 2e-4 (as a multiple of atol 2e-5 + 2e-4 |want|)."""
+    loss_rel = float(np.max(np.abs(got["losses"] - want["losses"]) / np.abs(want["losses"])))
+    param = max(float(np.max(np.abs(got["params"][l][k] - want["params"][l][k])
+                             / (2e-5 + 2e-4 * np.abs(want["params"][l][k]))))
+                for l in want["params"] for k in want["params"][l])
+    return loss_rel, param, float(abs(got["val"] - want["val"]) / abs(want["val"]))
+
+
+def phase_multichip(torch, dev, lstm):
+    """Phase 12 on phase 8's beats; returns the three kernels' launches in
+    its ranks."""
+    from ae_waveforms_tpu_torch.core import flops
+    from ae_waveforms_tpu_torch.core.schema import load_arrays
+    from ae_waveforms_tpu_torch.parallel import dryrun
+
+    waves = load_arrays(lstm["data"]).waves
+    # (a) the sharded step at world 1 over NCCL against phase 8's step on the same beats, init and generator
+    kw = dict(latent=10, batch=128, optimizer="adam", waves=waves[:PAR_STEPS * 128], steps=PAR_STEPS, timed=True)
+    t0 = time.perf_counter()
+    a = dryrun.run_sharded([("ae", 1, kw)], ["cuda:0"], "nccl", timeout_s=300)
+    wall_a = time.perf_counter() - t0
+    one = dryrun.ae_steps(dev, None, **kw)
+    got = a["results"][0]
+    loss_rel, param, val_rel = ae_close(got, one)
+    ms, ms_one = (float(np.median(r["step_ms"][PAR_TIMED_FROM:])) for r in (got, one))
+    step_flops = 128 * flops.lstm_ae_train_flops_per_sample()
+    bit = bool(np.array_equal(got["losses"], one["losses"]))
+    print(f"[multichip] (a) world 1 over NCCL on cuda:0, {PAR_STEPS} sharded steps of the default LSTM AE at B=128 "
+          f"on phase 8's beats ({wall_a:.2f} s wall, the rank's start and build load included): ms per step p50 "
+          f"{ms:.4f} (CUDA events, synchronised each step, steps {PAR_TIMED_FROM} on) beside {ms_one:.4f} for the "
+          f"single-device step in this process and phase 8's {lstm['step_ms']:.4f}; the gradient all-reduce "
+          f"({got['allreduce_bytes']} bytes) {got['allreduce_ms'] * 1e3:.2f} us p50 of 50; MFU {mfu_of(torch, step_flops, ms):.5f} "
+          f"(single device {mfu_of(torch, step_flops, ms_one):.5f}, phase 8 {mfu_of(torch, step_flops, lstm['step_ms']):.5f})")
+    print(f"[multichip] (a) against the single-device steps: losses bit-identical {bit}, max relative "
+          f"{loss_rel:.3e} (tolerance 1e-5, phase 8's card repeat); params at most {param:.3f} of rtol 2e-4 + atol "
+          f"2e-5; validation relative {val_rel:.3e}")
+    check(loss_rel <= 1e-5 and param <= 1.0 and val_rel <= 1e-5, "the NCCL world-1 steps differ from one device's")
+
+    # (b) two gloo ranks on one card, each workload against its one-device run
+    jobs = [(name, mp, tp_inputs(np.random.default_rng(12)) if name == "tp" else
+             dict(kw_, waves=waves[:512]) if name == "ae" else kw_) for name, mp, kw_ in PAR_B_JOBS]
+    t0 = time.perf_counter()
+    b = dryrun.run_sharded(jobs, ["cuda:0", "cuda:0"], "gloo", timeout_s=600)
+    wall_b = time.perf_counter() - t0
+    res = dict(zip([j[0] for j in jobs], b["results"]))
+    want = {name: dryrun.WORKLOADS[name](dev, None, **kw_) for name, _, kw_ in jobs if name != "tp"}
+    loss_rel, param, val_rel = ae_close(res["ae"], want["ae"])
+    print(f"[multichip] (b) two ranks on cuda:0 over gloo ({wall_b:.2f} s wall; gloo, one card: no measurement of "
+          f"a user path): the AE step at B=128 split 64 + 64, 4 steps: losses max relative {loss_rel:.3e} "
+          f"(tolerance 2e-5), params at most {param:.3f} of rtol 2e-4 + atol 2e-5, validation {val_rel:.3e}")
+    check(loss_rel <= 2e-5 and param <= 1.0 and val_rel <= 2e-5, "the 2-rank AE step differs from one device's")
+    gbt_same = bool(np.array_equal(res["gbt"], want["gbt"]))
+    multi_same = all(np.array_equal(res["multi"][k], want["multi"][k], equal_nan=True)
+                     for k in ("train_losses", "val_losses", "best_val"))
+    ext_same = ([c[0] for c in res["extract"]] == [c[0] for c in want["extract"]]
+                and all(g[4] == w[4] and all(x.tobytes() == y.tobytes() for x, y in zip(g[1:4], w[1:4]))
+                        for g, w in zip(res["extract"], want["extract"])))
+    tp_out, tp_params, tp_loss = tp_unsharded(torch, dev, **tp_inputs(np.random.default_rng(12)))
+    tp_err = float(np.abs(res["tp"]["out"] - tp_out).max())
+    tp_perr = max(float(np.max(np.abs(res["tp"]["params"][k] - v) / (1e-6 + 1e-5 * np.abs(v))))
+                  for k, v in tp_params.items())
+    print(f"[multichip] (b) 8-seed GBT fit split 4 + 4 ({res['gbt'].shape} probabilities): exact {gbt_same}; "
+          f"multi-config AE, 2 configs split 1 + 1: bit-identical {multi_same}; extraction of 2 records in chunks of 8 "
+          f"windows split 4 + 4 ({sum(len(c[1]) for c in res['extract'])} beats): byte-equal {ext_same}; "
+          f"tensor-parallel pair on (1, 2): output max_abs_err {tp_err:.3e} (tolerance 1e-6), step params at most "
+          f"{tp_perr:.3f} of rtol 1e-5 + atol 1e-6, loss {res['tp']['loss']:.6f} against {tp_loss:.6f}")
+    check(gbt_same and multi_same and ext_same, "a 2-rank result differs from one device's")
+    check(tp_err <= 1e-6 and tp_perr <= 1.0 and abs(res["tp"]["loss"] - tp_loss) <= 1e-6 * abs(tp_loss),
+          "the tensor-parallel pair differs from the unsharded MLP")
+    launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
+    print(f"[multichip] kernel launches in the ranks: (a) {a['launches']}, (b) {b['launches']}")
+    check(all(v > 0 for v in launches.values()), f"a kernel was not launched in the ranks: {launches}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2246,18 +2393,20 @@ def main() -> int:
         study_launches = timed("9 conv AE and reconstruction study", phase_reconstruction, torch, dev, lstm)
         timed("10 extraction", phase_extract, torch, dev, work)
         many_launches = timed("11 many models", phase_many_models, torch, dev, lstm)
+        par_launches = timed("12 several ranks", phase_multichip, torch, dev, lstm)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
              replaces="ae_waveforms_tpu/ops/lstm_pallas.py:109",
-             launches=serve_launches["lstm_encoder"] + train_launches + study_launches["lstm_encoder"] + many_launches,
-             **encoder),
+             launches=serve_launches["lstm_encoder"] + train_launches + study_launches["lstm_encoder"] + many_launches
+             + par_launches["lstm_encoder"], **encoder),
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
              replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
-             launches=serve_launches["gbt_route"] + classify_launches["gbt_route"] + study_launches["gbt_route"],
-             **route),
+             launches=serve_launches["gbt_route"] + classify_launches["gbt_route"] + study_launches["gbt_route"]
+             + par_launches["gbt_route"], **route),
         dict(name="gbt_hist", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_hist.cu",
-             replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193", launches=classify_launches["gbt_hist"], **hist),
+             replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193",
+             launches=classify_launches["gbt_hist"] + par_launches["gbt_hist"], **hist),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -58,12 +58,23 @@ def test_ppv_and_latent_tasks_write_their_results(tmp_path, capsys):
         assert f.readline().strip() == "size,median_auc,q1_auc,q3_auc"
 
 
-def test_later_slices_raise(tmp_path):
+def test_later_slices_raise(tmp_path, monkeypatch):
+    """--n_devices above 1 goes to the launcher (2 gloo ranks with --device
+    cpu, which rerun the parsed command); more CUDA devices than are
+    visible raise, naming the count."""
+    from ae_waveforms_tpu_torch.parallel import launch
+
     d = _data_dir(tmp_path, n_per=20)
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        cli.main(["deep", "--data", d, "--n_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-device slice"):
-        cli.main(["ppv", "--data", d, "--n_devices", "2", "--device", "cpu"])
+    calls = []
+    monkeypatch.setattr(launch, "run", lambda fn, args, devices, backend, **kw: calls.append((args, devices, backend)))
+    for task in ("deep", "ppv"):
+        cli.main([task, "--data", d, "--n_devices", "2", "--device", "cpu"])
+    assert calls == [((argv,), ["cpu", "cpu"], "gloo") for argv in
+                     (["deep", "--data", d, "--n_devices", "2", "--device", "cpu"],
+                      ["ppv", "--data", d, "--n_devices", "2", "--device", "cpu"])]
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    with pytest.raises(SystemExit, match="0 CUDA devices are visible"):
+        cli.main(["ppv", "--data", d, "--n_devices", "2"])
 
 
 def test_cli_imports_without_sklearn_pandas_matplotlib_or_jax():

@@ -171,7 +171,7 @@ def test_cli_matches_jax_extract_and_build_arrays(tmp_path):
 
 
 def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(SystemExit, match="--n_devices requires --engine device --batched"):
         cli.main(["--out", str(tmp_path), "--n_devices", "2", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="parquet"):
         cli.main(["--out", str(tmp_path), "--from-parquet", str(tmp_path), "--device", "cpu"])

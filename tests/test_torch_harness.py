@@ -108,8 +108,17 @@ def test_size_seed_sweep_and_ppv_match_jax(tmp_path):
     np.testing.assert_allclose(got["aucs"], want["aucs"], atol=1e-4, rtol=0)
     np.testing.assert_allclose(got["ppvs"], want["ppvs"], atol=1e-4, rtol=0)
     assert got.keys() == want.keys() and got["size"] == want["size"] == 150
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        th.ppv_analysis(data, PARAMS, size=150, n_seeds=3, vectorized=True, mesh=object(), device="cpu")
+    # the seed axis over a grid of one rank (a process group of this process alone) gives the same AUCs
+    import torch.distributed as dist
+
+    from ae_waveforms_tpu_torch.parallel.mesh import data_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        one = th.ppv_analysis(data, PARAMS, size=150, n_seeds=3, vectorized=True, mesh=data_mesh(), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert one["aucs"] == got["aucs"] and one["ppvs"] == got["ppvs"]
 
 
 def test_sequential_paths_run_on_the_port_classifier():

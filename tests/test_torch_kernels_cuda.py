@@ -711,3 +711,18 @@ def test_stacked_runs_equal_single_runs_on_the_card(kind):
             for a, b in zip(tree_leaves(both[i]), tree_leaves(one)):
                 np.testing.assert_array_equal(a, b)
 
+
+
+def test_sharded_ae_step_at_world_1_over_nccl_matches_one_device():
+    """One NCCL rank on the card (``parallel.launch``) against the same
+    steps in this process: the all-reduce of one rank changes nothing."""
+    _card()
+    from ae_waveforms_tpu_torch.parallel import dryrun
+
+    kw = dict(latent=10, n_rows=96, batch=32, seq_len=320, optimizer="adam", steps=3)
+    got = dryrun.run_sharded([("ae", 1, kw)], ["cuda:0"], "nccl", timeout_s=300)["results"][0]
+    want = dryrun.ae_steps(torch.device("cuda:0"), None, **kw)
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
+    for layer in want["params"]:
+        for k in want["params"][layer]:
+            np.testing.assert_allclose(got["params"][layer][k], want["params"][layer][k], rtol=2e-4, atol=2e-5)

@@ -189,11 +189,28 @@ def test_test_pass_plots_where_matplotlib_is_installed(runs, tmp_path, monkeypat
                                         ("--per_config_splits", "1"), ("--multi_checkpoint_every", "5"),
                                         ("--multi_resume_dir", "runs"), ("--n_devices", "2"),
                                         ("--model_parallel", "2")])
-def test_cli_flags_of_later_slices_raise(flag, value):
-    """Several devices raise, alone and with each multi-config flag."""
+def test_cli_flags_of_later_slices_raise(flag, value, monkeypatch):
+    """Several devices go to the launcher, alone and with each multi-config
+    flag: 2 gloo ranks with --device cpu, which rerun the parsed command.
+    A model axis that does not divide the devices raises."""
+    from ae_waveforms_tpu_torch.parallel import launch
+
+    class Launched(Exception):
+        pass
+
+    def run(fn, args, devices, backend, **kw):
+        raise Launched(args, devices, backend)
+
+    monkeypatch.setattr(launch, "run", run)
     devices = [] if flag in ("--n_devices", "--model_parallel") else ["--n_devices", "2"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-        autoencoder(["-m", "train", flag, value, *devices, "--device", "cpu"])
+    argv = ["-m", "train", flag, value, *devices, "--device", "cpu"]
+    if flag == "--model_parallel":
+        with pytest.raises(ValueError, match="--model_parallel 2 must divide --n_devices 1"):
+            autoencoder(argv)
+        return
+    with pytest.raises(Launched) as e:
+        autoencoder(argv)
+    assert e.value.args == ((argv,), ["cpu", "cpu"], "gloo")
 
 
 def test_resume_round_trips_train_state(tmp_path, monkeypatch):
