@@ -14,8 +14,10 @@ device stages run on ``--device`` (the first CUDA device unless named;
 ``--engine device --batched``, as in the JAX CLI) splits each window chunk
 over N ranks, one process a device (``parallel/launch.py``; ``cuda:0`` to
 ``cuda:{N-1}`` over NCCL, or N CPU ranks over gloo with ``--device cpu``);
-rank 0 writes the cache and the arrays.  ``--from-parquet`` is the next
-slice of the port and raises ``NotImplementedError``.
+rank 0 writes the cache and the arrays.  ``--from-parquet DIR`` skips
+extraction and builds the three arrays from the reference's per-case
+parquet files (``data/parquet_compat.py``; needs pandas and pyarrow, and
+no device); it writes no data_stats.json, as the JAX CLI writes none.
 """
 
 from __future__ import annotations
@@ -54,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="split each window chunk over this many devices, one rank each (needs --engine device "
                         "--batched)")
     p.add_argument("--from-parquet", type=str, default=None,
-                   help="build the arrays from reference-format per-case parquet files (not ported)")
+                   help="skip extraction: build the arrays from a directory of reference-format per-case "
+                        "parquet files")
     p.add_argument("--device", default=None,
                    help="torch device of the device stages (default: the first CUDA device; 'cpu' runs them "
                         "on the CPU)")
@@ -64,13 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None, stats: ExtractionStats = None) -> dict:
     """Run the CLI; returns ``{"results", "stats", "elapsed_s"}`` (the
     ``stats`` given, or a new ``ExtractionStats``; with ``--n_devices``
-    above 1 rank 0's results and time, and stats None)."""
+    above 1 rank 0's results and time, and stats None; with
+    ``--from-parquet`` the parquet files' cases, and stats None)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     if args.from_parquet:
-        raise NotImplementedError(
-            "--from-parquet is the next slice of the port (ROADMAP.md, queue 1, item 12); convert with the "
-            "JAX package's cli.extract")
+        return _from_parquet(args)
     if args.n_devices is not None and args.n_devices > 1:
         if args.engine != "device" or not args.batched:
             raise SystemExit("--n_devices requires --engine device --batched")
@@ -79,6 +81,17 @@ def main(argv=None, stats: ExtractionStats = None) -> dict:
         devices, backend = launch.devices_for(args.n_devices, args.device)
         return launch.run(_rank, (argv,), devices, backend, timeout_s=None)
     return _run(args, resolve_device(args.device), stats)
+
+
+def _from_parquet(args) -> dict:
+    from ae_waveforms_tpu_torch.data.parquet_compat import load_reference_cache_dir
+
+    t0 = time.time()
+    results = load_reference_cache_dir(args.from_parquet)
+    arrays = build_arrays(results)
+    save_arrays(arrays, args.out, allow_pickle=ExtractionConfig(path_data=args.out).use_pickle)
+    print(f"converted {len(arrays)} samples from reference parquet cache {args.from_parquet} -> {args.out}")
+    return {"results": results, "stats": None, "elapsed_s": time.time() - t0}
 
 
 def _rank(device, argv) -> dict:

@@ -29,7 +29,9 @@ from torch import nn
 
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
 from ae_waveforms_tpu_torch.models.layers import copy_tree_, dropout, linear_init, lstm_forward, lstm_init
-from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
+# the module, not the name: ops.lstm_encoder imports models.layers, whose
+# package imports this module, so either may be imported first
+from ae_waveforms_tpu_torch.ops import lstm_encoder
 
 __all__ = ["LSTMAutoencoder"]
 
@@ -83,7 +85,7 @@ class LSTMAutoencoder(nn.Module):
         eval mode; through ``enc1..enc3`` with dropout ``rate`` after enc1
         and enc2 in train mode."""
         if not self.training:
-            return encode_fused(self.jax_tree(), x)
+            return lstm_encoder.encode_fused(self.jax_tree(), x)
         with cudnn_fp32():
             h, _ = lstm_forward(self.enc1, x)
             h = dropout(h, rate, generator, True)

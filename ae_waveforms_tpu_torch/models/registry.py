@@ -8,14 +8,15 @@ models take (B, 320, 1).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
+import torch
 from torch import nn
 
 from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 
-__all__ = ["MODEL_REGISTRY", "ModelDef", "model_def"]
+__all__ = ["MODEL_REGISTRY", "ModelDef", "model_def", "build_model", "input_layout"]
 
 
 @dataclass(frozen=True)
@@ -36,3 +37,23 @@ def model_def(name: str) -> ModelDef:
     if name not in MODEL_REGISTRY:
         raise ValueError(f"unknown model class {name!r}; available: {sorted(MODEL_REGISTRY)}")
     return MODEL_REGISTRY[name]
+
+
+def build_model(name: str, generator: Optional[torch.Generator] = None, latent_size: int = 10,
+                dropout: float = 0.2, device=None) -> Tuple[ModelDef, nn.Module]:
+    """``(ModelDef, module)`` of model class ``name``, its weights drawn from
+    ``generator`` (seed 0 when None), on ``device`` (the first CUDA device
+    unless named).
+
+    ``dropout`` sets nothing, as in the JAX package's ``init``: neither
+    module holds a rate.  The rate is a forward-time argument
+    (``forward(x, rate, generator)``, ``encode`` and ``decode`` alike), which
+    the trainer passes as ``cfg.dropout`` in train mode."""
+    del dropout
+    mdef = model_def(name)
+    return mdef, mdef.build(latent_size, generator=generator, device=device)
+
+
+def input_layout(name: str) -> bool:
+    """True if the model consumes (B, 1, L) channel-first input."""
+    return MODEL_REGISTRY[name].channel_first

@@ -10,7 +10,8 @@ Every draw comes from the legacy global ``np.random`` stream, as in the JAX
 package, so a seeded run gives the same masks and files there and here.
 
 Batches are gathered on the device from device-resident arrays (see
-``train/loop.py``), so there is no per-item dataset class on the hot path.
+``train/loop.py``); ``WaveDataset`` is the per-item view beside that path,
+a ``torch.utils.data.Dataset`` over the same numpy rows.
 """
 
 from __future__ import annotations
@@ -22,8 +23,9 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+from torch.utils.data import Dataset
 
-__all__ = ["draw_split_masks", "split_datasets", "save_subject_ids", "layout_waves"]
+__all__ = ["draw_split_masks", "split_datasets", "save_subject_ids", "layout_waves", "WaveDataset"]
 
 
 def draw_split_masks(
@@ -113,3 +115,41 @@ def layout_waves(waves: np.ndarray, channel_first: bool) -> np.ndarray:
     """(N, 320) -> (N, 1, 320) for conv models, (N, 320, 1) for recurrent
     (load_data.py:35-46 swap_dim)."""
     return waves[:, None, :] if channel_first else waves[:, :, None]
+
+
+class WaveDataset(Dataset):
+    """Array-backed dataset view (capability twin of the reference's torch
+    ``Datasets`` class, load_data.py:14-70): flag-mask selection, layout
+    control, y == x autoencoder targets, (x, y, f, c) item tuples, and the
+    patient-demographics accessor.  Items are the numpy rows, as the JAX
+    package's view returns them; a ``DataLoader`` collates them into
+    tensors."""
+
+    def __init__(self, waves, features, info, flag=None, channel_first: bool = True):
+        if flag is not None:
+            waves, features, info = waves[flag], features[flag], info[flag]
+        self.wave = layout_waves(np.asarray(waves, np.float32), channel_first)
+        self.features = np.asarray(features, np.float32)
+        self.info = np.asarray(info)
+        self.y = self.wave  # autoencoder target
+
+    def __len__(self) -> int:
+        return len(self.info)
+
+    def __getitem__(self, index):
+        return self.wave[index], self.y[index], self.features[index], self.info[index]
+
+    def get_yvals(self):
+        return self.y
+
+    def get_patient_demographics(self):
+        """Per-patient mean of the feature columns keyed by case id
+        (load_data.py:66-70 capability; the reference assumes demographic
+        columns, here it is the generic per-id aggregation).  Needs
+        pandas."""
+        import pandas as pd
+
+        ids = self.info[:, 0]
+        df = pd.DataFrame(self.features)
+        df.insert(0, "id", ids)
+        return df.groupby("id").mean().reset_index()

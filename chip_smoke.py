@@ -153,6 +153,21 @@ Phases, each of which fails the run:
    against the unsharded MLP (1e-6; its SGD step 1e-5 + 1e-6), each against
    its one-device run.  The ranks' launches of K1, K2 and K3 join the
    ``kernels`` line; each must be above 0.
+13. end to end (``ae_waveforms_tpu_torch.examples.run_e2e`` at the JAX
+   example's defaults: 12 synthetic 120-s records, the conv AE at full
+   width for 2 epochs): ``cli.extract`` -> ``main_train`` -> ``main_test``
+   with the latents -> the test split copied into the data dir ->
+   ``compare`` with the 128-candidate sigma sweep -> the GBT grid search (4
+   LHS candidates x 2 folds) and a 3-seed PPV sweep on the latents, then the
+   resume-and-serve flow (4 steps, resumed to 8 from the full train state,
+   ``Scorer.from_run`` on 10 beats with a 10-tree depth-2 GBT head), all on
+   the card; then the chain again on the CPU.  The extracted arrays must be
+   byte-equal and the split masks equal, card against CPU, and the study's
+   traditional MSE and RMSE within phase 9's objective tolerance; the test
+   RMSE finite, the median PPV above 0.8, the resumed step above 0 and the
+   head's probabilities in [0, 1].  K1's and K2's launches on the card
+   must equal the count the code gives, and join the ``kernels`` line.
+   Prints each stage's wall seconds.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -418,13 +433,20 @@ def heap_inputs(torch, dev, rng, S, n, d0, d1, F=10, n_bins=64, edges=None):
 # 28,000 of a classify run's launches are such levels), the deep bucket's 24
 # fits at 512 nodes and the PPV sweep's 25 seeds at 128
 ROUTE_FIT_SHAPE = (96, 12500, 32)
+# and phase 13's single fits, one level of one fit: a grid-search fold's 149
+# rows (depth up to 10), a PPV seed's 128 and the flow head's 20
 ROUTE_LEVEL_SHAPES = ([(100, n, 2**d) for n in (64, 256) for d in range(6)]
-                      + [(100, 256, 1024), ROUTE_FIT_SHAPE, (24, 12000, 512), (25, 12500, 128)])
+                      + [(100, 256, 1024), ROUTE_FIT_SHAPE, (24, 12000, 512), (25, 12500, 128)]
+                      + [(1, n, 2**d) for n, depth in ((149, 10), (128, 3), (20, 2)) for d in range(depth)])
 # levels [d0, d1) in one launch (S, n, d0, d1): the serving head's 100 trees
 # of depth 6 (ROUTE_SERVE_SHAPE, one launch a score), the PPV sweep's
-# prediction (25 seeds x 500 trees of depth 8 on 500 test rows) and mid-heap
+# prediction (25 seeds x 500 trees of depth 8 on 500 test rows), mid-heap,
+# and phase 13's predictions: a grid-search fold's 149 held-out rows through
+# 400 trees of depth 3 and 250 of depth 10, a PPV seed's 49 test rows, and
+# the flow head's 10 trees of depth 2 on 10 beats
 ROUTE_SERVE_SHAPE = (100, 64, 0, 6)
-ROUTE_HEAP_SHAPES = [ROUTE_SERVE_SHAPE, (100, 256, 0, 6), (12500, 500, 0, 8), (100, 256, 2, 6)]
+ROUTE_HEAP_SHAPES = [ROUTE_SERVE_SHAPE, (100, 256, 0, 6), (12500, 500, 0, 8), (100, 256, 2, 6),
+                     (400, 149, 0, 3), (250, 149, 0, 10), (400, 49, 0, 3), (10, 10, 0, 2)]
 
 
 def phase_route(torch, dev):
@@ -596,10 +618,12 @@ def phase_serve(torch):
 # (S, n, half, share of rows with g = h = 0): the grid search's chunks of 96
 # fits at depth <= 6 and of 24 at depth <= 10, the PPV sweep's 25 seeds on
 # 12,500 rows, a fit-like level (held-out and subsampled-out rows carry no
-# weight: 1 - 0.67 * 0.8 = 46%) and the smoke grid's chunks of 6 fits
+# weight: 1 - 0.67 * 0.8 = 46%), the smoke grid's chunks of 6 fits, and
+# phase 13's single fits (E2E_FIT_SHAPES)
+E2E_FIT_SHAPES = [(1, 149, half, 0.3) for half in (1, 2, 16, 128, 256)] + [(1, 128, 2, 0.05), (1, 20, 1, 0.0)]
 HIST_SHAPES = ([(96, 12000, half, 0.0) for half in (1, 2, 4, 8, 16)] + [(96, 12000, 16, 0.46)]
                + [(24, 12000, half, 0.0) for half in (32, 64, 128, 256)] + [(25, 12500, 16, 0.0)]
-               + [(6, 12000, half, 0.46) for half in (1, 16, 256)])
+               + [(6, 12000, half, 0.46) for half in (1, 16, 256)] + E2E_FIT_SHAPES)
 HIST_SWEEP_SHAPE = (96, 12000, 16, 0.0)  # the grid search's depth <= 6 chunks, deepest level
 
 
@@ -2353,6 +2377,164 @@ def phase_multichip(torch, dev, lstm):
     return launches
 
 
+# phase 13: the repo's end-to-end run (examples/run_e2e.py's port) at the JAX example's defaults
+STUDY_RTOL, STUDY_ATOL = 1e-5, 1e-7  # phase 9's objective tolerance, for the study's MSE and RMSE
+# phase 7's card-against-CPU margin tolerance, for leaf weights and, through
+# the sigmoid's largest slope 1/4, for probabilities
+GBT_MARGIN_TOL = 5e-3
+
+
+def e2e_predicted_launches(best: dict, latent: int) -> dict:
+    """K1 and K2 launches that the code makes in phase 13's card run: a fit
+    makes one of each a level (``gbt._fit_batched``), a prediction the
+    launches of ``route_spans`` (``GBTClassifier.predict_proba``); the
+    grid search fits each candidate once a fold and predicts its held-out
+    fold, the PPV sweep fits ``best`` once a seed and predicts the test
+    rows, and the flow fits its head once and predicts once."""
+    from ae_waveforms_tpu_torch.classify.lhs import lhs_param_dicts
+    from ae_waveforms_tpu_torch.examples.run_e2e import (
+        FLOW_DEPTH, FLOW_TREES, GS_CANDIDATES, GS_FOLDS, GS_RANDOM_STATE, PPV_SEEDS,
+    )
+    from ae_waveforms_tpu_torch.ops.gbt_route import route_spans
+
+    cands = lhs_param_dicts(GS_CANDIDATES, random_state=GS_RANDOM_STATE)
+    levels = (GS_FOLDS * sum(p["n_estimators"] * p["max_depth"] for p in cands)
+              + PPV_SEEDS * best["n_estimators"] * best["max_depth"] + FLOW_TREES * FLOW_DEPTH)
+    predicts = (GS_FOLDS * sum(len(route_spans(latent, 0, p["max_depth"])) for p in cands)
+                + PPV_SEEDS * len(route_spans(latent, 0, best["max_depth"]))
+                + len(route_spans(latent, 0, FLOW_DEPTH)))
+    return {"gbt_hist": levels, "gbt_route": levels + predicts}
+
+
+def recording_gbt(base):
+    """A subclass of ``base`` (``GBTClassifier``) that keeps every instance
+    it fits, with the fit's rows and each prediction's rows and
+    probabilities, so that each card fit can be refitted on the CPU."""
+
+    class Recorded(base):
+        fitted = []
+
+        def fit(self, X, y, sample_weight=None):
+            self.fit_args = (np.array(X), np.array(y), None if sample_weight is None else np.array(sample_weight))
+            self.predictions = []
+            Recorded.fitted.append(self)
+            return super().fit(X, y, sample_weight)
+
+        def predict_proba(self, X):
+            out = super().predict_proba(X)
+            self.predictions.append((X.cpu().numpy() if hasattr(X, "cpu") else np.array(X), out))
+            return out
+
+    return Recorded
+
+
+def gbt_refits(torch, fitted) -> None:
+    """Each card fit of phase 13 refitted on its own rows, params and seed
+    through the plain path on the CPU: the trees' splits (feature, bin,
+    flag) must be equal, the leaves and each prediction's probabilities
+    within ``GBT_MARGIN_TOL`` (1/4 of it for probabilities)."""
+    from ae_waveforms_tpu_torch.classify.gbt import GBTClassifier
+
+    leaf_err = proba_err = 0.0
+    shapes = {}
+    for m in fitted:
+        X, y, w = m.fit_args
+        cpu = GBTClassifier(**m.params, random_state=m.random_state, n_bins=m.n_bins, device="cpu").fit(X, y, w)
+        key = (m.params["n_estimators"], m.params["max_depth"], len(X))
+        shapes[key] = shapes.get(key, 0) + 1
+        for name in ("feat", "thresh", "is_split"):
+            check(torch.equal(getattr(m._ens, name).cpu(), getattr(cpu._ens, name)),
+                  f"a card fit of {key[0]} trees of depth {key[1]} on {key[2]} rows grows other trees than the "
+                  f"CPU's ({name})")
+        leaf_err = max(leaf_err, float((m._ens.leaf.cpu() - cpu._ens.leaf).abs().max()))
+        check(len(m.predictions) > 0, f"a card fit of {key} predicted nothing")
+        for rows, proba in m.predictions:
+            proba_err = max(proba_err, float(np.abs(proba - cpu.predict_proba(rows)).max()))
+    print(f"[e2e] the card's {len(fitted)} GBT fits refitted on the CPU (trees, depth, rows: fits "
+          f"{', '.join(f'{k}: {v}' for k, v in sorted(shapes.items()))}): splits equal; leaves max_abs_err "
+          f"{leaf_err:.3e} (tolerance {GBT_MARGIN_TOL}), probabilities max_abs_err {proba_err:.3e} (tolerance "
+          f"{GBT_MARGIN_TOL / 4})")
+    check(leaf_err <= GBT_MARGIN_TOL and proba_err <= GBT_MARGIN_TOL / 4,
+          f"the card's GBT leaves or probabilities part from the CPU refit's: {leaf_err}, {proba_err}")
+
+
+def phase_e2e(torch, dev, work=None):
+    """Phase 13: ``examples.run_e2e`` at its defaults (12 synthetic 120-s
+    records, the conv AE for 2 epochs) and its resume-and-serve flow on the
+    card; the chain's first four stages again on the CPU, its hand-offs
+    card against CPU; and every GBT fit of the card run refitted on the
+    CPU.  Returns the histogram and routing kernels' launches on the card."""
+    from ae_waveforms_tpu_torch.classify import gbt, harness
+    from ae_waveforms_tpu_torch.examples import run_e2e
+    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
+    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+
+    with workdir(work) as w:
+        card_dir, cpu_dir = os.path.join(w, "e2e_card"), os.path.join(w, "e2e_cpu")
+        recorded = recording_gbt(gbt.GBTClassifier)
+        originals = harness.GBTClassifier, gbt.GBTClassifier
+        harness.GBTClassifier = gbt.GBTClassifier = recorded
+        try:
+            left_histograms_fixed.launches = route_rows.launches = 0
+            t0 = time.perf_counter()
+            card = run_e2e.main(["--workdir", card_dir, "--device", str(dev)])
+            t1 = time.perf_counter()
+            flow = run_e2e.resume_and_serve(card_dir, card["data_dir"], device=dev)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches}
+        finally:
+            harness.GBTClassifier, gbt.GBTClassifier = originals
+        cpu = run_e2e.run_ae(cpu_dir, device="cpu")
+        t3 = time.perf_counter()
+        gbt_refits(torch, recorded.fitted)
+        t4 = time.perf_counter()
+
+        for tag, out in (("card", card), ("CPU", cpu)):
+            print(f"[e2e] the chain on the {tag}: " + ", ".join(f"{k} {v:.3f} s" for k, v in out["seconds"].items()))
+        print(f"[e2e] the resume-and-serve flow on the card: "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in flow["seconds"].items()))
+        print(f"[e2e] wall s: chain on the card {t1 - t0:.3f}, flow on the card {t2 - t1:.3f}, the chain's first "
+              f"four stages on the CPU {t3 - t2:.3f}, the GBT refits on the CPU {t4 - t3:.3f}")
+
+        same_arrays = all(open(os.path.join(card["data_dir"], f"np_{n}.npy"), "rb").read()
+                          == open(os.path.join(cpu["data_dir"], f"np_{n}.npy"), "rb").read() for n in ARRAYS)
+        same_split = True
+        for split in ("train", "val", "test"):
+            (a,), (b,) = (glob.glob(os.path.join(o["run_dir"], f"indices_{split}_*.npy")) for o in (card, cpu))
+            same_split = same_split and np.array_equal(np.load(a), np.load(b))
+        trad, trad_cpu = card["results"]["study"]["traditional"], cpu["results"]["study"]["traditional"]
+        study_err = max(abs(g - w_) / (STUDY_ATOL + STUDY_RTOL * abs(w_)) for g, w_ in
+                        ((trad.mse, trad_cpu.mse), (trad.rmse_mean, trad_cpu.rmse_mean),
+                         (trad.rmse_median, trad_cpu.rmse_median)))
+        n_beats = len(np.load(os.path.join(card["data_dir"], "np_waves.npy")))
+        print(f"[e2e] the card against the CPU: np_waves/np_features/np_info ({n_beats} beats) byte-equal "
+              f"{same_arrays}; indices_train/val/test equal {same_split}; the study's traditional MSE "
+              f"{trad.mse:.8f} (CPU {trad_cpu.mse:.8f}), mean RMSE {trad.rmse_mean:.8f} ({trad_cpu.rmse_mean:.8f}), "
+              f"median RMSE {trad.rmse_median:.8f} ({trad_cpu.rmse_median:.8f}): at most {study_err:.3e} of rtol "
+              f"{STUDY_RTOL} + atol {STUDY_ATOL}")
+        check(same_arrays, "the card's extracted arrays differ from the CPU's")
+        check(same_split, "the card run's patient split differs from the CPU run's")
+        check(study_err <= 1.0, "the card's traditional reconstruction metrics part from the CPU's")
+
+        _, (loss, rmse, _, prd, _), _, latents = card["results"]["test"]
+        ppv, best = card["results"]["ppv"], card["results"]["grid_search"]["best_params"]
+        p = flow["score_gbt"]["probability"]
+        print(f"[e2e] AE test loss {loss:.6f}, RMSE {rmse:.6f}, PRD {prd:.3f}% on {len(latents)} beats; grid search "
+              f"best {best} (CV AUC {card['results']['grid_search']['best_score']:.4f}); PPV sweep median AUC "
+              f"{ppv['median_auc']:.4f}, median PPV {ppv['median_ppv']:.4f}; flow resumed at step "
+              f"{flow['resumed_step']}, probabilities {p.min():.4f} to {p.max():.4f}")
+        check(np.isfinite(rmse) and latents.shape[1] == 10, f"the AE test pass: rmse {rmse}, latents {latents.shape}")
+        check(ppv["median_ppv"] > 0.8, f"median PPV {ppv['median_ppv']} on the separated cohorts")
+        check(flow["resumed_step"] > 0, "the resumed run did not restore a step")
+        check(p.shape == (10,) and bool(np.all((p >= 0) & (p <= 1))), f"GBT head probabilities {p}")
+
+    want = e2e_predicted_launches(best, latents.shape[1])
+    print(f"[e2e] kernel launches on the card: {launches}; the code predicts {want}")
+    check(launches == want, f"phase 13's launches {launches} are not the code's {want}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2394,6 +2576,7 @@ def main() -> int:
         timed("10 extraction", phase_extract, torch, dev, work)
         many_launches = timed("11 many models", phase_many_models, torch, dev, lstm)
         par_launches = timed("12 several ranks", phase_multichip, torch, dev, lstm)
+        e2e_launches = timed("13 end to end", phase_e2e, torch, dev, work)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
@@ -2403,10 +2586,10 @@ def main() -> int:
         dict(name="gbt_route", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_route.cu",
              replaces="ae_waveforms_tpu/ops/gbt_route_pallas.py:167",
              launches=serve_launches["gbt_route"] + classify_launches["gbt_route"] + study_launches["gbt_route"]
-             + par_launches["gbt_route"], **route),
+             + par_launches["gbt_route"] + e2e_launches["gbt_route"], **route),
         dict(name="gbt_hist", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_hist.cu",
              replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193",
-             launches=classify_launches["gbt_hist"] + par_launches["gbt_hist"], **hist),
+             launches=classify_launches["gbt_hist"] + par_launches["gbt_hist"] + e2e_launches["gbt_hist"], **hist),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -173,8 +173,6 @@ def test_cli_matches_jax_extract_and_build_arrays(tmp_path):
 def test_cli_refuses_what_it_cannot_run(tmp_path, monkeypatch):
     with pytest.raises(SystemExit, match="--n_devices requires --engine device --batched"):
         cli.main(["--out", str(tmp_path), "--n_devices", "2", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="parquet"):
-        cli.main(["--out", str(tmp_path), "--from-parquet", str(tmp_path), "--device", "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--out", str(tmp_path), "--cases", "1", "--duration", "30"])
