@@ -14,6 +14,9 @@ epilogue in plain torch, and one ``route_rows`` call (the routing kernel).
 ``predict_margin`` routes **all trees through all levels in one launch**
 (``route_levels``): the tree axis is the routing kernel's fit axis.  The
 tree loop never waits for the device: nothing in it copies to the host.
+Its phases are spans (``train.profiling``): ``gbt.masks``, ``gbt.grad``
+and ``gbt.leaves`` once a tree, and once a level ``gbt.hist`` and
+``gbt.route`` (the kernels' calls, spans of their own) around ``gbt.split``.
 
 Numbers.  The histograms are exact integer sums of g and h in fixed point
 (``ops/gbt_hist.py``), so the sibling subtraction, the prefix sums over
@@ -37,6 +40,7 @@ import torch
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins, pow2
 from ae_waveforms_tpu_torch.ops.gbt_route import route_levels, route_rows
+from ae_waveforms_tpu_torch.train.profiling import span
 
 __all__ = [
     "GBTClassifier", "GBTEnsemble", "compute_bin_edges", "bin_data", "fit_gbt", "fit_gbt_multi",
@@ -126,66 +130,70 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
     margin = torch.full((S, n), BASE_SCORE, dtype=torch.float32, device=dev)
     trees = []
     for t in range(n_estimators):
-        active = (t < n_actives).float()[:, None]
-        sub, col = _masks(seeds, t, n, F, subsamples, colsamples, row_masks, col_masks)
-        w = (row_weights * sub).double()
-        p = torch.sigmoid(margin.double())
-        g = ((p - y) * w).float()
-        h = ((p * (1.0 - p)).clamp_min(1e-16) * w).float()
-        shift = fixed_point_shift(g, h)
-        scale = pow2(-shift)[:, None, None, None]
-        feasible_col = col[:, None, :, None] & bin_ok
+        with span("gbt.masks"):
+            sub, col = _masks(seeds, t, n, F, subsamples, colsamples, row_masks, col_masks)
+        with span("gbt.grad"):
+            active = (t < n_actives).float()[:, None]
+            w = (row_weights * sub).double()
+            p = torch.sigmoid(margin.double())
+            g = ((p - y) * w).float()
+            h = ((p * (1.0 - p)).clamp_min(1e-16) * w).float()
+            shift = fixed_point_shift(g, h)
+            scale = pow2(-shift)[:, None, None, None]
+            feasible_col = col[:, None, :, None] & bin_ok
+            node_of = torch.zeros((S, n), dtype=torch.int32, device=dev)
 
-        node_of = torch.zeros((S, n), dtype=torch.int32, device=dev)
         feats, thrs, splits = [], [], []
         for depth in range(D):
             n_nodes = 2**depth
             half = max(n_nodes // 2, 1)
             q = left_histograms_fixed(binsT, g, h, node_of, shift, half=half, n_bins=B, packed=packed)
-            q = q.view(S, 2 * half, F, B)
-            if depth == 0:
-                # the root is node 0, a "left child": its rows are every row
-                Gq, Hq = q[:, :1], q[:, 1:]
-            else:
-                # sibling subtraction, exact in integers: right = parent - left
-                Gl, Hl = q[:, :half], q[:, half:]
-                Gq = torch.stack([Gl, Gq - Gl], dim=2).view(S, n_nodes, F, B)
-                Hq = torch.stack([Hl, Hq - Hl], dim=2).view(S, n_nodes, F, B)
-            GLq, HLq = Gq.cumsum(-1), Hq.cumsum(-1)
-            GL, HL = GLq.double() * scale, HLq.double() * scale
-            GR, HR = (GLq[..., -1:] - GLq).double() * scale, (HLq[..., -1:] - HLq).double() * scale
-            G, H = GL[..., -1:], HL[..., -1:]
-            gain = 0.5 * (GL * GL / (HL + lam) + GR * GR / (HR + lam) - G * G / (H + lam)) - gam
-            feasible = (HL >= mcw) & (HR >= mcw) & feasible_col
-            flat = torch.where(feasible, gain, -torch.inf).view(S, n_nodes, F * B)
-            best = flat.argmax(-1)  # the first of equal gains, as in the JAX package
-            best_gain = flat.gather(-1, best[..., None])[..., 0]
-            do_split = (best_gain > 0.0) & (depth < depth_limits[:, None])
-            bf, bb = (best // B).to(torch.int32), (best % B).to(torch.int32)
-            # heap layout: level d fills the static range [2^d-1, 2^(d+1)-1)
-            feats.append(torch.where(do_split, bf, 0))
-            thrs.append(torch.where(do_split, bb, 0))
-            splits.append(do_split)
+            with span("gbt.split"):
+                q = q.view(S, 2 * half, F, B)
+                if depth == 0:
+                    # the root is node 0, a "left child": its rows are every row
+                    Gq, Hq = q[:, :1], q[:, 1:]
+                else:
+                    # sibling subtraction, exact in integers: right = parent - left
+                    Gl, Hl = q[:, :half], q[:, half:]
+                    Gq = torch.stack([Gl, Gq - Gl], dim=2).view(S, n_nodes, F, B)
+                    Hq = torch.stack([Hl, Hq - Hl], dim=2).view(S, n_nodes, F, B)
+                GLq, HLq = Gq.cumsum(-1), Hq.cumsum(-1)
+                GL, HL = GLq.double() * scale, HLq.double() * scale
+                GR, HR = (GLq[..., -1:] - GLq).double() * scale, (HLq[..., -1:] - HLq).double() * scale
+                G, H = GL[..., -1:], HL[..., -1:]
+                gain = 0.5 * (GL * GL / (HL + lam) + GR * GR / (HR + lam) - G * G / (H + lam)) - gam
+                feasible = (HL >= mcw) & (HR >= mcw) & feasible_col
+                flat = torch.where(feasible, gain, -torch.inf).view(S, n_nodes, F * B)
+                best = flat.argmax(-1)  # the first of equal gains, as in the JAX package
+                best_gain = flat.gather(-1, best[..., None])[..., 0]
+                do_split = (best_gain > 0.0) & (depth < depth_limits[:, None])
+                bf, bb = (best // B).to(torch.int32), (best % B).to(torch.int32)
+                # heap layout: level d fills the static range [2^d-1, 2^(d+1)-1)
+                feats.append(torch.where(do_split, bf, 0))
+                thrs.append(torch.where(do_split, bb, 0))
+                splits.append(do_split)
             # rows of a node that does not split descend its left spine
             node_of = route_rows(binsT, node_of, bf, bb, do_split)
 
-        # leaf sums from the last level's prefix sums: a split node's left
-        # child holds GL at its split, an unsplit node's holds all its rows
-        tot = (bf.long() * B + B - 1)[..., None]
-        at = torch.where(do_split, best, tot[..., 0])[..., None]
-        GLf, HLf = GLq.view(S, n_nodes, F * B), HLq.view(S, n_nodes, F * B)
-        Gleft, Hleft = GLf.gather(-1, at)[..., 0], HLf.gather(-1, at)[..., 0]
-        Gtot, Htot = GLf.gather(-1, tot)[..., 0], HLf.gather(-1, tot)[..., 0]
-        leaf_scale = scale[:, :, 0, 0]
-        Gleaf = torch.stack([Gleft, Gtot - Gleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
-        Hleaf = torch.stack([Hleft, Htot - Hleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
-        wleaf = (-Gleaf / (Hleaf + lam)).float() * active
-        margin = margin + learning_rates[:, None] * torch.gather(wleaf, 1, node_of.long())
+        with span("gbt.leaves"):
+            # leaf sums from the last level's prefix sums: a split node's left
+            # child holds GL at its split, an unsplit node's holds all its rows
+            tot = (bf.long() * B + B - 1)[..., None]
+            at = torch.where(do_split, best, tot[..., 0])[..., None]
+            GLf, HLf = GLq.view(S, n_nodes, F * B), HLq.view(S, n_nodes, F * B)
+            Gleft, Hleft = GLf.gather(-1, at)[..., 0], HLf.gather(-1, at)[..., 0]
+            Gtot, Htot = GLf.gather(-1, tot)[..., 0], HLf.gather(-1, tot)[..., 0]
+            leaf_scale = scale[:, :, 0, 0]
+            Gleaf = torch.stack([Gleft, Gtot - Gleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
+            Hleaf = torch.stack([Hleft, Htot - Hleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
+            wleaf = (-Gleaf / (Hleaf + lam)).float() * active
+            margin = margin + learning_rates[:, None] * torch.gather(wleaf, 1, node_of.long())
 
-        # static heap bookkeeping, padded by one inert slot to (2^D,)
-        zero = torch.zeros((S, 1), dtype=torch.int32, device=dev)
-        trees.append((torch.cat(feats + [zero], 1), torch.cat(thrs + [zero], 1),
-                      torch.cat(splits + [zero.bool()], 1), wleaf))
+            # static heap bookkeeping, padded by one inert slot to (2^D,)
+            zero = torch.zeros((S, 1), dtype=torch.int32, device=dev)
+            trees.append((torch.cat(feats + [zero], 1), torch.cat(thrs + [zero], 1),
+                          torch.cat(splits + [zero.bool()], 1), wleaf))
     feat, thresh, is_split, leaf = (torch.stack(x, 1) for x in zip(*trees))
     return GBTEnsemble(feat, thresh, is_split, leaf, learning_rates), margin
 

@@ -29,7 +29,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
+
+from ae_waveforms_tpu_torch.train.profiling import span
 
 __all__ = [
     "lstm_init", "lstm_cell", "lstm_apply", "lstm_forward", "linear_init", "linear_apply", "conv1d_init",
@@ -158,7 +159,7 @@ def upsample_linear(x: torch.Tensor, size: int) -> torch.Tensor:
     if size < x.shape[-1]:
         raise ValueError(f"upsample_linear grows a length; {x.shape[-1]} -> {size} would shrink it")
     lo, hi, w_lo, w_hi = _linear_taps(x.shape[-1], size, x.device)
-    with record_function("upsample"):
+    with span("upsample"):
         return x.index_select(-1, lo) * w_lo + x.index_select(-1, hi) * w_hi
 
 
@@ -196,7 +197,7 @@ def dropout(x: torch.Tensor, rate: float, generator, train: bool) -> torch.Tenso
         return x
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
-    with record_function("dropout"):
+    with span("dropout"):
         if isinstance(generator, RowShard):
             u = torch.rand((generator.batch, *x.shape[1:]), generator=generator.generator,
                            device=x.device)[generator.rows]

@@ -38,6 +38,8 @@ from typing import Mapping, NamedTuple, Optional
 
 import torch
 
+from ae_waveforms_tpu_torch.train.profiling import span
+
 from ae_waveforms_tpu_torch.ops import _build
 
 __all__ = [
@@ -251,36 +253,37 @@ def left_histograms_fixed(binsT, g, h, node_of, shift, *, half: int, n_bins: int
     on a CPU tensor it runs the plain version on ``binsT`` (``packed``, where
     given, is checked and not read).  A wrong dtype, shape or device raises
     ``ValueError``, as do more bins than a block's shared memory holds; a
-    launch error raises ``RuntimeError``."""
-    if node_of.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"left_histograms runs on CUDA or CPU tensors, got {node_of.device}")
-    if half < 1 or n_bins < 1:
-        raise ValueError(f"need half >= 1 and n_bins >= 1, got half={half}, n_bins={n_bins}")
-    _check(binsT, g, h, node_of, shift)
-    F, n = binsT.shape
-    S = g.shape[0]
-    if packed is not None:
-        _check_packed(packed, F, n, n_bins, node_of.device)
-    if node_of.device.type == "cpu":
-        return left_histograms_fixed_reference(binsT, g, h, node_of, shift, half=half, n_bins=n_bins)
-    if S > 65535:
-        raise ValueError(f"at most 65535 fits per call, got {S}")
-    out = torch.empty((S, 2 * half, F * n_bins), dtype=torch.int64, device=node_of.device)
-    if n == 0 or F == 0 or S == 0:
-        return out.zero_()
-    plan = hist_plan(S, n, F, n_bins, half, active_clusters(node_of.device.index))
-    if packed is None:
-        packed = pack_bins(binsT, n_bins)
-    with torch.cuda.device(node_of.device):  # ctypes launches on the thread's current device
-        rc = _library().gbt_hist_launch(
-            packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(), out.data_ptr(),
-            S, n, packed.shape[1], _bin_bytes(n_bins), F, n_bins, half, plan.cluster, plan.node_tile,
-            plan.feature_tile, plan.threads, plan.smem_bytes, torch.cuda.current_stream(node_of.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gbt_hist kernel launch failed: cudaError_t {rc}")
-    left_histograms_fixed.launches += 1
-    return out
+    launch error raises ``RuntimeError``.  The call is a span, ``gbt.hist``."""
+    with span("gbt.hist"):
+        if node_of.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"left_histograms runs on CUDA or CPU tensors, got {node_of.device}")
+        if half < 1 or n_bins < 1:
+            raise ValueError(f"need half >= 1 and n_bins >= 1, got half={half}, n_bins={n_bins}")
+        _check(binsT, g, h, node_of, shift)
+        F, n = binsT.shape
+        S = g.shape[0]
+        if packed is not None:
+            _check_packed(packed, F, n, n_bins, node_of.device)
+        if node_of.device.type == "cpu":
+            return left_histograms_fixed_reference(binsT, g, h, node_of, shift, half=half, n_bins=n_bins)
+        if S > 65535:
+            raise ValueError(f"at most 65535 fits per call, got {S}")
+        out = torch.empty((S, 2 * half, F * n_bins), dtype=torch.int64, device=node_of.device)
+        if n == 0 or F == 0 or S == 0:
+            return out.zero_()
+        plan = hist_plan(S, n, F, n_bins, half, active_clusters(node_of.device.index))
+        if packed is None:
+            packed = pack_bins(binsT, n_bins)
+        with torch.cuda.device(node_of.device):  # ctypes launches on the thread's current device
+            rc = _library().gbt_hist_launch(
+                packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                S, n, packed.shape[1], _bin_bytes(n_bins), F, n_bins, half, plan.cluster, plan.node_tile,
+                plan.feature_tile, plan.threads, plan.smem_bytes, torch.cuda.current_stream(node_of.device).cuda_stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"gbt_hist kernel launch failed: cudaError_t {rc}")
+        left_histograms_fixed.launches += 1
+        return out
 
 
 left_histograms_fixed.launches = 0

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ae_waveforms_tpu_torch.ops import _build
+from ae_waveforms_tpu_torch.train.profiling import span
 
 __all__ = ["RoutePlan", "route_layout", "route_levels", "route_levels_reference", "route_plan", "route_rows",
            "route_rows_reference", "route_spans"]
@@ -271,16 +272,18 @@ def route_rows(binsT, node_of, bf, bb, do_split) -> torch.Tensor:
     stride), so a level of a tree heap is routed without a copy.  On a CUDA
     tensor this launches the kernel (counted in ``route_rows.launches``); on
     a CPU tensor it runs the plain version.  A wrong dtype, shape or device
-    raises ``ValueError``, a launch error ``RuntimeError``."""
-    if node_of.device.type == "cpu":
-        return route_rows_reference(binsT, node_of, bf, bb, do_split)
-    if node_of.device.type != "cuda":
-        raise ValueError(f"route_rows runs on CUDA or CPU tensors, got {node_of.device}")
-    S, n_nodes = bf.shape
-    for name, t in (("bb", bb), ("do_split", do_split)):
-        if tuple(t.shape) != (S, n_nodes):
-            raise ValueError(f"{name}: expected shape {(S, n_nodes)}, got {tuple(t.shape)}")
-    return _launch(binsT, node_of, bf, bb, do_split, S, n_nodes, 1)
+    raises ``ValueError``, a launch error ``RuntimeError``.  The call is a
+    span, ``gbt.route``."""
+    with span("gbt.route"):
+        if node_of.device.type == "cpu":
+            return route_rows_reference(binsT, node_of, bf, bb, do_split)
+        if node_of.device.type != "cuda":
+            raise ValueError(f"route_rows runs on CUDA or CPU tensors, got {node_of.device}")
+        S, n_nodes = bf.shape
+        for name, t in (("bb", bb), ("do_split", do_split)):
+            if tuple(t.shape) != (S, n_nodes):
+                raise ValueError(f"{name}: expected shape {(S, n_nodes)}, got {tuple(t.shape)}")
+        return _launch(binsT, node_of, bf, bb, do_split, S, n_nodes, 1)
 
 
 def route_levels(bins_t, node_of: Optional[torch.Tensor], feat, thresh, is_split, d0: int, d1: int) -> torch.Tensor:

@@ -51,7 +51,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ae_waveforms_tpu_torch import cudnn_fp32, resolve_device
 from ae_waveforms_tpu_torch.core.config import TrainConfig
@@ -63,7 +62,7 @@ from ae_waveforms_tpu_torch.train import checkpoint as ckpt
 from ae_waveforms_tpu_torch.train.data import layout_waves, split_datasets
 from ae_waveforms_tpu_torch.train.logs import CsvLogs, make_tracker, setup_logging
 from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
-from ae_waveforms_tpu_torch.train.profiling import trace
+from ae_waveforms_tpu_torch.train.profiling import span
 from ae_waveforms_tpu_torch.train.schedules import (
     cosine_annealing_warm_restarts,
     cosine_annealing_warmup_hard_restarts,
@@ -134,11 +133,11 @@ def _weighted_total(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, m
     through ``model`` times its mask (padding rows, mask False, weigh
     nothing), with its autograd graph.  The gather and the loss are marked
     "gather and loss" for ``torch.profiler``."""
-    with record_function("gather and loss"):
+    with span("gather and loss"):
         x = data_x.index_select(0, idx)
         w = mask.to(x.dtype)
     pred = model(x, rate, generator)
-    with record_function("gather and loss"):
+    with span("gather and loss"):
         elem = _elementwise_loss(loss_kind, pred, x)
         return (elem.reshape(elem.shape[0], -1).mean(dim=1) * w).sum()
 
@@ -148,7 +147,7 @@ def batch_loss(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: 
     """The loss of the batch ``data_x[idx]`` through ``model`` in its
     current mode, with its autograd graph."""
     total = _weighted_total(model, data_x, idx, mask, generator, rate, loss_kind)
-    with record_function("gather and loss"):
+    with span("gather and loss"):
         return _finalize_loss(loss_kind, total / mask.to(total.dtype).sum().clamp_min(1.0), 1.0)
 
 
@@ -158,15 +157,21 @@ def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch
     batch's loss before the update, on the device.  The backward pass runs
     inside ``cudnn_fp32`` as the forward does: cuDNN's RNN backward reads
     the TF32 flag when it runs, not when its forward ran.  The optimizer
-    marks its own step for ``torch.profiler``."""
-    loss = batch_loss(model, data_x, idx, mask, generator, rate, loss_kind)
-    optimizer.zero_grad(set_to_none=True)
-    with cudnn_fp32():
-        loss.backward()
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
-    return loss.detach()
+    marks its own step for ``torch.profiler``; the step and its three
+    phases are spans (``train.step``: ``train.forward``, ``train.backward``,
+    ``train.optimizer``)."""
+    with span("train.step"):
+        with span("train.forward"):
+            loss = batch_loss(model, data_x, idx, mask, generator, rate, loss_kind)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            with cudnn_fp32():
+                loss.backward()
+        with span("train.optimizer"):
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
+        return loss.detach()
 
 
 def sharded_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
@@ -176,23 +181,28 @@ def sharded_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_
     block of its rows (``grid.rows``): dropout drawn for the whole batch,
     this rank's share of the batch mean, its gradients and that share
     summed over the data group in one all-reduce, then the optimizer.
-    Returns the batch's loss before the update, on the device."""
-    rows = grid.rows(idx.shape[0])
-    total = _weighted_total(model, data_x, idx[rows], mask[rows], RowShard(generator, idx.shape[0], rows), rate,
-                            loss_kind)
-    share = total / mask.to(total.dtype).sum().clamp_min(1.0)
-    optimizer.zero_grad(set_to_none=False)
-    with cudnn_fp32():
-        share.backward()
-    params = [p for group in optimizer.param_groups for p in group["params"]]
-    mean = share.detach().reshape(1)
-    all_reduce_sum_([*(p.grad for p in params), mean], grid.data_group)
-    if loss_kind == "rmse":  # d sqrt(m) = dm / (2 sqrt(m)): the chain rule after the sum
-        torch._foreach_mul_([p.grad for p in params], 0.5 / torch.sqrt(mean[0]))
-    for group in optimizer.param_groups:
-        group["lr"] = lr
-    optimizer.step()
-    return _finalize_loss(loss_kind, mean[0], 1.0)
+    Returns the batch's loss before the update, on the device.  The spans
+    are ``train_step``'s; ``train.backward`` holds the all-reduce."""
+    with span("train.step"):
+        with span("train.forward"):
+            rows = grid.rows(idx.shape[0])
+            total = _weighted_total(model, data_x, idx[rows], mask[rows], RowShard(generator, idx.shape[0], rows),
+                                    rate, loss_kind)
+            share = total / mask.to(total.dtype).sum().clamp_min(1.0)
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=False)
+            with cudnn_fp32():
+                share.backward()
+            params = [p for group in optimizer.param_groups for p in group["params"]]
+            mean = share.detach().reshape(1)
+            all_reduce_sum_([*(p.grad for p in params), mean], grid.data_group)
+            if loss_kind == "rmse":  # d sqrt(m) = dm / (2 sqrt(m)): the chain rule after the sum
+                torch._foreach_mul_([p.grad for p in params], 0.5 / torch.sqrt(mean[0]))
+        with span("train.optimizer"):
+            for group in optimizer.param_groups:
+                group["lr"] = lr
+            optimizer.step()
+        return _finalize_loss(loss_kind, mean[0], 1.0)
 
 
 def validate(model: nn.Module, val_x: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor, loss_kind: str,
@@ -200,22 +210,25 @@ def validate(model: nn.Module, val_x: torch.Tensor, idx: torch.Tensor, mask: tor
     """The loss over every unmasked row, the model in eval mode (the fused
     encoder kernel on the card) under no_grad; the model is left in train
     mode.  With ``grid``, this rank's block of each batch's rows, the
-    totals summed over the data group."""
-    sums = torch.zeros(2, device=val_x.device)  # total, count
-    model.eval()
-    with torch.no_grad():
-        for bidx, bmask in zip(idx, mask):
-            if grid is not None:
-                rows = grid.rows(bidx.shape[0])
-                bidx, bmask = bidx[rows], bmask[rows]
-            x = val_x.index_select(0, bidx)
-            elem = _elementwise_loss(loss_kind, model(x), x)
-            w = bmask.to(x.dtype)[:, None, None]
-            sums = sums + torch.stack([torch.sum(elem * w), torch.sum(w) * elem.shape[1] * elem.shape[2]])
-    model.train()
-    if grid is not None:
-        all_reduce_sum_([sums], grid.data_group)
-    return float(_finalize_loss(loss_kind, sums[0], sums[1]))
+    totals summed over the data group.  A span, ``train.validate``, with
+    one ``train.validate.batch`` a batch."""
+    with span("train.validate"):
+        sums = torch.zeros(2, device=val_x.device)  # total, count
+        model.eval()
+        with torch.no_grad():
+            for bidx, bmask in zip(idx, mask):
+                with span("train.validate.batch"):
+                    if grid is not None:
+                        rows = grid.rows(bidx.shape[0])
+                        bidx, bmask = bidx[rows], bmask[rows]
+                    x = val_x.index_select(0, bidx)
+                    elem = _elementwise_loss(loss_kind, model(x), x)
+                    w = bmask.to(x.dtype)[:, None, None]
+                    sums = sums + torch.stack([torch.sum(elem * w), torch.sum(w) * elem.shape[1] * elem.shape[2]])
+        model.train()
+        if grid is not None:
+            all_reduce_sum_([sums], grid.data_group)
+        return float(_finalize_loss(loss_kind, sums[0], sums[1]))
 
 
 def main_train(
@@ -223,7 +236,6 @@ def main_train(
     arrays: Optional[ArraySet] = None,
     max_steps: Optional[int] = None,
     resume_dir: Optional[str] = None,
-    profile_dir: Optional[str] = None,
     device=None,
     init_params: Optional[Dict] = None,
     mesh: Optional[Grid] = None,
@@ -236,10 +248,13 @@ def main_train(
     ``resume_dir``: a previous run's results dir of this package — the full
     train state (params + optimizer + dropout generator + step) is restored
     from its best resumable checkpoint and training continues.
-    ``profile_dir``: wraps the first training chunk in a ``torch.profiler``
-    trace.  ``init_params``: the initial parameters as the JAX package's
+    ``init_params``: the initial parameters as the JAX package's
     numpy tree (as ``model_init.npz`` holds them) in place of the seeded
     init, so that a run can start where another package's did.
+
+    Each step's learning rate and batch rows are a span, ``train.schedule``;
+    each chunk's wait for its losses ``train.readback``; its CSV and
+    tracker logging ``train.log``; each checkpoint save ``train.checkpoint``.
     """
     t_start = time.time()
     np.random.seed(cfg.seed)
@@ -273,7 +288,8 @@ def main_train(
         model.load_jax_tree(init_params)
     model.train()
     if writer:
-        ckpt.save_state(os.path.join(results_dir, "model_init.npz"), model.jax_tree())
+        with span("train.checkpoint"):
+            ckpt.save_state(os.path.join(results_dir, "model_init.npz"), model.jax_tree())
 
     logger.info(f"Start loading data from dataset version: {cfg.dataset_dir}")
     if arrays is None:
@@ -355,22 +371,23 @@ def main_train(
         while local < steps_per_epoch and not early_stop:
             n_steps = 1 if local == 0 else min(V, steps_per_epoch - local)
             lr_scale = torch.tensor(0.5**lr_events if is_steplr else 1.0, dtype=torch.float32)
-            first_chunk = epoch == 1 and local == 0
             losses, lrs = [], []
-            with trace(profile_dir if first_chunk and writer else None):
-                for j in range(n_steps):
-                    lr_t = float(schedule(global_step + j) * lr_scale)
-                    losses.append(step(model, optimizer, train_x, idx_all[local + j], mask_all[local + j],
-                                       lr_t, generator, cfg.dropout, cfg.loss))
-                    lrs.append(lr_t)
-            losses = torch.stack(losses).cpu().numpy()  # the chunk's one wait for the device
             for j in range(n_steps):
-                s_local = local + j
-                if s_local % 10 == 0 and s_local != 0:
-                    csvlog.train_step(epoch, s_local, lrs[j], float(losses[j]))
-                tracker.log("Train Loss", float(losses[j]))
-                tracker.log("Batch number", s_local)
-                tracker.log("Learning Rate", lrs[j])
+                with span("train.schedule"):
+                    lr_t = float(schedule(global_step + j) * lr_scale)
+                    idx, mask = idx_all[local + j], mask_all[local + j]
+                losses.append(step(model, optimizer, train_x, idx, mask, lr_t, generator, cfg.dropout, cfg.loss))
+                lrs.append(lr_t)
+            with span("train.readback"):
+                losses = torch.stack(losses).cpu().numpy()  # the chunk's one wait for the device
+            with span("train.log"):
+                for j in range(n_steps):
+                    s_local = local + j
+                    if s_local % 10 == 0 and s_local != 0:
+                        csvlog.train_step(epoch, s_local, lrs[j], float(losses[j]))
+                    tracker.log("Train Loss", float(losses[j]))
+                    tracker.log("Batch number", s_local)
+                    tracker.log("Learning Rate", lrs[j])
             global_step += n_steps
             local += n_steps
             last_local = local - 1
@@ -395,9 +412,10 @@ def main_train(
                 # early stopping + rolling best checkpoint
                 if val_loss < valid_loss_min:
                     if writer:
-                        state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
-                                 "generator": generator.get_state(), "step": global_step}
-                        best_path = ckpt.save_best(results_dir, val_loss, state, params=model.jax_tree())
+                        with span("train.checkpoint"):
+                            state = {"model": model.state_dict(), "optimizer": optimizer.state_dict(),
+                                     "generator": generator.get_state(), "step": global_step}
+                            best_path = ckpt.save_best(results_dir, val_loss, state, params=model.jax_tree())
                     valid_loss_min = val_loss
                     patience_counter = 0
                 else:
@@ -419,10 +437,11 @@ def main_train(
 
     # final model: best params if any, else current (run_train.py:537-538)
     if writer:
-        final_params = model.jax_tree()
-        if best_path is not None:
-            final_params = ckpt.load_state(best_path.replace(".npz", "_params.npz"), final_params)
-        ckpt.save_state(os.path.join(results_dir, "model_autoencoder.npz"), final_params)
+        with span("train.checkpoint"):
+            final_params = model.jax_tree()
+            if best_path is not None:
+                final_params = ckpt.load_state(best_path.replace(".npz", "_params.npz"), final_params)
+            ckpt.save_state(os.path.join(results_dir, "model_autoencoder.npz"), final_params)
     logger.info(f"Training is finished. Best validation loss: {valid_loss_min}")
     logger.info(f"Execution finished and saved at: {results_dir} ({time.time() - t_start:.1f}s)")
     csvlog.close()

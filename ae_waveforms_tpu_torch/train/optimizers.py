@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ae_waveforms_tpu_torch.train.profiling import span
 from ae_waveforms_tpu_torch.train.ranger import Ranger
 
 __all__ = ["Adam", "Adagrad", "make_optimizer"]
@@ -34,7 +35,8 @@ class Adam(torch.optim.Optimizer):
     in optax's order of operations, over every group's tensors at once (one
     chain of foreach ops, each group's betas, eps, bias corrections and
     learning rate as per-tensor scalars: the stacked trainers hold one
-    group a config)."""
+    group a config).  The moments' update and the parameters' are spans,
+    ``adam.moments`` and ``adam.update``."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
@@ -73,12 +75,16 @@ class Adam(torch.optim.Optimizer):
             return loss
         mu = [self.state[p]["mu"] for p in ps]
         nu = [self.state[p]["nu"] for p in ps]
-        torch._foreach_copy_(mu, torch._foreach_add(torch._foreach_mul(gs, sc["c1"]), torch._foreach_mul(mu, sc["b1"])))
-        g2 = torch._foreach_mul(gs, gs)
-        torch._foreach_copy_(nu, torch._foreach_add(torch._foreach_mul(g2, sc["c2"]), torch._foreach_mul(nu, sc["b2"])))
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, sc["bias2"])), sc["eps"])
-        updates = torch._foreach_div(torch._foreach_div(mu, sc["bias1"]), denom)
-        torch._foreach_add_(ps, torch._foreach_mul(updates, sc["neg_lr"]))
+        with span("adam.moments"):
+            torch._foreach_copy_(mu, torch._foreach_add(torch._foreach_mul(gs, sc["c1"]),
+                                                        torch._foreach_mul(mu, sc["b1"])))
+            g2 = torch._foreach_mul(gs, gs)
+            torch._foreach_copy_(nu, torch._foreach_add(torch._foreach_mul(g2, sc["c2"]),
+                                                        torch._foreach_mul(nu, sc["b2"])))
+        with span("adam.update"):
+            denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, sc["bias2"])), sc["eps"])
+            updates = torch._foreach_div(torch._foreach_div(mu, sc["bias1"]), denom)
+            torch._foreach_add_(ps, torch._foreach_mul(updates, sc["neg_lr"]))
         return loss
 
 
