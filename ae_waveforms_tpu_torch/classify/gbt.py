@@ -9,8 +9,9 @@ pruning, min_child_weight, per-tree row and column subsampling.
 
 The fit grows S fits at once (the JAX package's vmapped fit axis, written
 out), level by level.  Each level makes one ``left_histograms_fixed`` call
-(the histogram kernel) for all S fits, the prefix-sum, gain and argmax
-epilogue in plain torch, and one ``route_rows`` call (the routing kernel).
+(the histogram kernel) for all S fits, one ``split_level`` call (the split
+kernel: sibling subtraction, prefix sums, gains, argmax and the level's
+heap slots) and one ``route_rows`` call (the routing kernel).
 ``predict_margin`` routes **all trees through all levels in one launch**
 (``route_levels``): the tree axis is the routing kernel's fit axis.  The
 tree loop never waits for the device: nothing in it copies to the host.
@@ -40,6 +41,7 @@ import torch
 from ae_waveforms_tpu_torch import resolve_device
 from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins, pow2
 from ae_waveforms_tpu_torch.ops.gbt_route import route_levels, route_rows
+from ae_waveforms_tpu_torch.ops.gbt_split import LAMBDA, split_level
 from ae_waveforms_tpu_torch.train.profiling import span
 
 __all__ = [
@@ -49,7 +51,6 @@ __all__ = [
 ]
 
 N_BINS = 64
-LAMBDA = 1.0  # xgboost reg_lambda default
 BASE_SCORE = 0.0  # margin of base_score 0.5
 _M32 = 0xFFFFFFFF
 _ROW_STREAM, _COL_STREAM = 0x52F1, 0xC07A
@@ -123,12 +124,12 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
     binsT = bins.T.contiguous()
     # the histogram kernel's layout of the pool, made once; the CPU's plain version reads binsT
     packed = pack_bins(binsT, n_bins) if dev.type == "cuda" else None
-    lam = LAMBDA
-    bin_ok = torch.arange(B, device=dev) < B - 1  # bin B-1 puts every row left
-    gam = gammas.double()[:, None, None, None]
-    mcw = min_child_weights.double()[:, None, None, None]
     margin = torch.full((S, n), BASE_SCORE, dtype=torch.float32, device=dev)
-    trees = []
+    # static heaps, level d in [2^d-1, 2^(d+1)-1) plus one inert slot, written level by level
+    feat = torch.zeros((S, n_estimators, 2**D), dtype=torch.int32, device=dev)
+    thresh = torch.zeros_like(feat)
+    is_split = torch.zeros_like(feat, dtype=torch.bool)
+    leaves = []
     for t in range(n_estimators):
         with span("gbt.masks"):
             sub, col = _masks(seeds, t, n, F, subsamples, colsamples, row_masks, col_masks)
@@ -139,62 +140,30 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
             g = ((p - y) * w).float()
             h = ((p * (1.0 - p)).clamp_min(1e-16) * w).float()
             shift = fixed_point_shift(g, h)
-            scale = pow2(-shift)[:, None, None, None]
-            feasible_col = col[:, None, :, None] & bin_ok
             node_of = torch.zeros((S, n), dtype=torch.int32, device=dev)
+            heap = (feat[:, t], thresh[:, t], is_split[:, t])
 
-        feats, thrs, splits = [], [], []
+        hist = None
         for depth in range(D):
             n_nodes = 2**depth
             half = max(n_nodes // 2, 1)
             q = left_histograms_fixed(binsT, g, h, node_of, shift, half=half, n_bins=B, packed=packed)
             with span("gbt.split"):
-                q = q.view(S, 2 * half, F, B)
-                if depth == 0:
-                    # the root is node 0, a "left child": its rows are every row
-                    Gq, Hq = q[:, :1], q[:, 1:]
-                else:
-                    # sibling subtraction, exact in integers: right = parent - left
-                    Gl, Hl = q[:, :half], q[:, half:]
-                    Gq = torch.stack([Gl, Gq - Gl], dim=2).view(S, n_nodes, F, B)
-                    Hq = torch.stack([Hl, Hq - Hl], dim=2).view(S, n_nodes, F, B)
-                GLq, HLq = Gq.cumsum(-1), Hq.cumsum(-1)
-                GL, HL = GLq.double() * scale, HLq.double() * scale
-                GR, HR = (GLq[..., -1:] - GLq).double() * scale, (HLq[..., -1:] - HLq).double() * scale
-                G, H = GL[..., -1:], HL[..., -1:]
-                gain = 0.5 * (GL * GL / (HL + lam) + GR * GR / (HR + lam) - G * G / (H + lam)) - gam
-                feasible = (HL >= mcw) & (HR >= mcw) & feasible_col
-                flat = torch.where(feasible, gain, -torch.inf).view(S, n_nodes, F * B)
-                best = flat.argmax(-1)  # the first of equal gains, as in the JAX package
-                best_gain = flat.gather(-1, best[..., None])[..., 0]
-                do_split = (best_gain > 0.0) & (depth < depth_limits[:, None])
-                bf, bb = (best // B).to(torch.int32), (best % B).to(torch.int32)
-                # heap layout: level d fills the static range [2^d-1, 2^(d+1)-1)
-                feats.append(torch.where(do_split, bf, 0))
-                thrs.append(torch.where(do_split, bb, 0))
-                splits.append(do_split)
-            # rows of a node that does not split descend its left spine
-            node_of = route_rows(binsT, node_of, bf, bb, do_split)
+                level = split_level(q, hist, shift, gammas, min_child_weights, col, depth_limits, heap, depth=depth,
+                                    n_bins=B, last=depth == D - 1)
+                hist = level.hist
+            # the level's heap slots are its splits; rows of a node that does not split descend its left spine
+            node_of = route_rows(binsT, node_of, *(x[:, n_nodes - 1:2 * n_nodes - 1] for x in heap))
 
         with span("gbt.leaves"):
-            # leaf sums from the last level's prefix sums: a split node's left
-            # child holds GL at its split, an unsplit node's holds all its rows
-            tot = (bf.long() * B + B - 1)[..., None]
-            at = torch.where(do_split, best, tot[..., 0])[..., None]
-            GLf, HLf = GLq.view(S, n_nodes, F * B), HLq.view(S, n_nodes, F * B)
-            Gleft, Hleft = GLf.gather(-1, at)[..., 0], HLf.gather(-1, at)[..., 0]
-            Gtot, Htot = GLf.gather(-1, tot)[..., 0], HLf.gather(-1, tot)[..., 0]
-            leaf_scale = scale[:, :, 0, 0]
-            Gleaf = torch.stack([Gleft, Gtot - Gleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
-            Hleaf = torch.stack([Hleft, Htot - Hleft], dim=2).view(S, 2 * n_nodes).double() * leaf_scale
-            wleaf = (-Gleaf / (Hleaf + lam)).float() * active
+            # a split node's left child holds GL at its split, an unsplit
+            # node's holds all its rows; the right child the rest of the node
+            left, total = level.leaf_sums.view(S, -1, 2, 2).unbind(2)  # (S, nodes, [G, H]) each
+            GH = torch.stack([left, total - left], dim=2).view(S, -1, 2).double() * pow2(-shift)[:, None, None]
+            wleaf = (-GH[..., 0] / (GH[..., 1] + LAMBDA)).float() * active
             margin = margin + learning_rates[:, None] * torch.gather(wleaf, 1, node_of.long())
-
-            # static heap bookkeeping, padded by one inert slot to (2^D,)
-            zero = torch.zeros((S, 1), dtype=torch.int32, device=dev)
-            trees.append((torch.cat(feats + [zero], 1), torch.cat(thrs + [zero], 1),
-                          torch.cat(splits + [zero.bool()], 1), wleaf))
-    feat, thresh, is_split, leaf = (torch.stack(x, 1) for x in zip(*trees))
+            leaves.append(wleaf)
+    leaf = torch.stack(leaves, 1)
     return GBTEnsemble(feat, thresh, is_split, leaf, learning_rates), margin
 
 

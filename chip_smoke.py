@@ -5,7 +5,7 @@ NVIDIA GPU:
 
 Phases, each of which fails the run:
 
-1. device and build: the card's name and power limit; the three CUDA
+1. device and build: the card's name and power limit; the four CUDA
    kernels built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel).
 2. the fused LSTM encoder kernel (8-block clusters) against its plain
@@ -49,14 +49,15 @@ Phases, each of which fails the run:
 6. the classify path through its entry point: a synthetic latent data dir
    (6,500 control and 6,500 sick rows of 10 latents) and
    ``cli.classify ppv --vectorized --gs_candidates 12 --seeds 25``, the
-   harness at full width.  The histogram and routing kernels' launch
+   harness at full width.  The histogram, split and routing kernels' launch
    counts must rise, the routing kernel's by one a fit level (as the
-   histogram kernel's) and one for the PPV sweep's prediction.  Prints the
+   histogram and split kernels') and one for the PPV sweep's prediction.  Prints the
    grid search's and PPV sweep's wall seconds, fold-fits per second, ms per
    tree per fit and the median AUC and PPV.
 7. determinism: a 4-fit sweep on 2,000 rows, fitted twice on the card
-   (bit-identical ensembles and margins) and once on the CPU (the same
-   trees, margins within 5e-3).
+   (bit-identical ensembles and margins, the split kernel launched once a
+   level of each) and once on the CPU (the same trees, margins within
+   5e-3).
 8. AE train and test through ``cli.main_ae`` at the default model's full
    width (B=128, T=320, Adam, StepLR, mse, dropout 0.2): 16,384 synthetic
    beats over 128 case ids, ``-m train`` for 2 epochs (validation every 25
@@ -151,8 +152,9 @@ Phases, each of which fails the run:
    ``train_ae_multi`` (bit-identical), a 2-record extraction in chunks of
    8 windows (byte-equal) and the tensor-parallel pair on a (1, 2) grid
    against the unsharded MLP (1e-6; its SGD step 1e-5 + 1e-6), each against
-   its one-device run.  The ranks' launches of K1, K2 and K3 join the
-   ``kernels`` line; each must be above 0.
+   its one-device run.  The ranks' launches of K1, K2, K3 and K4 join the
+   ``kernels`` line; each must be above 0, and K4's equal K1's (one a fit
+   level).
 13. end to end (``ae_waveforms_tpu_torch.examples.run_e2e`` at the JAX
    example's defaults: 12 synthetic 120-s records, the conv AE at full
    width for 2 epochs): ``cli.extract`` -> ``main_train`` -> ``main_test``
@@ -165,9 +167,18 @@ Phases, each of which fails the run:
    byte-equal and the split masks equal, card against CPU, and the study's
    traditional MSE and RMSE within phase 9's objective tolerance; the test
    RMSE finite, the median PPV above 0.8, the resumed step above 0 and the
-   head's probabilities in [0, 1].  K1's and K2's launches on the card
-   must equal the count the code gives, and join the ``kernels`` line.
+   head's probabilities in [0, 1].  K1's, K2's and K4's launches on the
+   card must equal the count the code gives, and join the ``kernels`` line.
    Prints each stage's wall seconds.
+14. the GBT split kernel (K4, ``ops/gbt_split.py``) at the fit's widest
+   levels (the grid search's 27 fits at depth 5 and 21 at depth 9, the
+   study's 96 and 24, the PPV sweep's 25 at depth 7, one fit on 149 rows at
+   depth 8), each as an inner and as the last level, on K1's sums of 12,000
+   rows (149 for the one fit) routed at random: the node histograms or
+   leaf sums and the heap slots bit-identical to its plain version's and
+   across two calls.  Times the kernel (device ms per call from a CUDA
+   graph, and per call with launch gaps from CUDA events) beside the plain
+   version and its bound by bytes.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -724,6 +735,7 @@ def phase_classify(torch):
     from ae_waveforms_tpu_torch.cli import classify as cli
     from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
     from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
 
     n_candidates, n_seeds = 12, 25
     cands = lhs_param_dicts(n_candidates, random_state=1)  # the CLI's grid
@@ -746,17 +758,19 @@ def phase_classify(torch):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         write_latent_dir(d)
         cli.grid_search_cv, cli.ppv_analysis = timing("grid", originals[0]), timing("ppv", originals[1])
-        left_histograms_fixed.launches = route_rows.launches = 0
+        left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
         try:
             result = cli.main(["ppv", "--data", d, "--vectorized", "--gs_candidates", str(n_candidates),
                                "--seeds", str(n_seeds)])
         finally:
             cli.grid_search_cv, cli.ppv_analysis = originals
-        launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches}
+        launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
+                    "gbt_split": split_level.launches}
     print(f"[classify] launches during the classify run: {launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the classify path: {launches}")
     check(launches["gbt_route"] == launches["gbt_hist"] + 1,
           f"a fit level routes in one launch and the PPV prediction in one: {launches}")
+    check(launches["gbt_split"] == launches["gbt_hist"], f"a fit level splits in one launch: {launches}")
     grid_s, gs = timed["grid"]
     ppv_s, _ = timed["ppv"]
     best = gs["best_params"]
@@ -836,6 +850,7 @@ def _split_gains(bins, g, h, rows, splits):
 
 def phase_determinism(torch, dev):
     from ae_waveforms_tpu_torch.classify import gbt
+    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
 
     rng = np.random.default_rng(7)
     S, n, F, depth, trees = 4, 2000, 10, 6, 20
@@ -850,8 +865,14 @@ def phase_determinism(torch, dev):
         return gbt.fit_gbt_sweep_margins(torch.from_numpy(bins).to(device), y, weights, np.arange(S),
                                          *hp.values(), max_depth=depth, n_estimators=trees)
 
-    a, b, c = fit(dev), fit(dev), fit("cpu")
+    split_level.launches = 0
+    a, b = fit(dev), fit(dev)
+    split_launches = split_level.launches
+    c = fit("cpu")
     torch.cuda.synchronize()
+    print(f"[determinism] split kernel launches in the two card fits: {split_launches} ({trees} trees x depth "
+          f"{depth} each)")
+    check(split_launches == 2 * trees * depth, f"the split kernel ran {split_launches} times, not once a level")
     same = all(torch.equal(u, v) for u, v in zip((*a[0], a[1]), (*b[0], b[1])))
     print(f"[determinism] two card fits ({S} fits, {n} rows, depth {depth}, {trees} trees, subsample and colsample "
           f"0.8): ensembles and margins bit-identical: {same}")
@@ -2374,6 +2395,7 @@ def phase_multichip(torch, dev, lstm):
     launches = {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}
     print(f"[multichip] kernel launches in the ranks: (a) {a['launches']}, (b) {b['launches']}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched in the ranks: {launches}")
+    check(launches["gbt_split"] == launches["gbt_hist"], f"the ranks' fit levels split in one launch: {launches}")
     return launches
 
 
@@ -2385,8 +2407,8 @@ GBT_MARGIN_TOL = 5e-3
 
 
 def e2e_predicted_launches(best: dict, latent: int) -> dict:
-    """K1 and K2 launches that the code makes in phase 13's card run: a fit
-    makes one of each a level (``gbt._fit_batched``), a prediction the
+    """K1, K2 and K4 launches that the code makes in phase 13's card run: a
+    fit makes one of each a level (``gbt._fit_batched``), a prediction the
     launches of ``route_spans`` (``GBTClassifier.predict_proba``); the
     grid search fits each candidate once a fold and predicts its held-out
     fold, the PPV sweep fits ``best`` once a seed and predicts the test
@@ -2403,7 +2425,7 @@ def e2e_predicted_launches(best: dict, latent: int) -> dict:
     predicts = (GS_FOLDS * sum(len(route_spans(latent, 0, p["max_depth"])) for p in cands)
                 + PPV_SEEDS * len(route_spans(latent, 0, best["max_depth"]))
                 + len(route_spans(latent, 0, FLOW_DEPTH)))
-    return {"gbt_hist": levels, "gbt_route": levels + predicts}
+    return {"gbt_hist": levels, "gbt_route": levels + predicts, "gbt_split": levels}
 
 
 def recording_gbt(base):
@@ -2468,6 +2490,7 @@ def phase_e2e(torch, dev, work=None):
     from ae_waveforms_tpu_torch.examples import run_e2e
     from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
     from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
 
     with workdir(work) as w:
         card_dir, cpu_dir = os.path.join(w, "e2e_card"), os.path.join(w, "e2e_cpu")
@@ -2475,14 +2498,15 @@ def phase_e2e(torch, dev, work=None):
         originals = harness.GBTClassifier, gbt.GBTClassifier
         harness.GBTClassifier = gbt.GBTClassifier = recorded
         try:
-            left_histograms_fixed.launches = route_rows.launches = 0
+            left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
             t0 = time.perf_counter()
             card = run_e2e.main(["--workdir", card_dir, "--device", str(dev)])
             t1 = time.perf_counter()
             flow = run_e2e.resume_and_serve(card_dir, card["data_dir"], device=dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches}
+            launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
+                        "gbt_split": split_level.launches}
         finally:
             harness.GBTClassifier, gbt.GBTClassifier = originals
         cpu = run_e2e.run_ae(cpu_dir, device="cpu")
@@ -2535,6 +2559,73 @@ def phase_e2e(torch, dev, work=None):
     return launches
 
 
+# phase 14: (S, n, depth): the widest levels of the grid search's chunks (27 fits to depth 6, 21 to depth 10),
+# of the study's (96 and 24), of the PPV sweep's 25 seeds (depth 8) and of one fit on a fold's 149 rows
+SPLIT_SHAPES = [(27, 12000, 5), (21, 12000, 9), (96, 12000, 5), (24, 12000, 9), (25, 12500, 7), (1, 149, 8)]
+SPLIT_SWEEP_SHAPE = (21, 12000, 9, True)  # the deep chunks' last level, K4's most bytes in the grid search
+
+
+def phase_split(torch, dev):
+    from ae_waveforms_tpu_torch.ops import gbt_split
+    from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins
+    from ae_waveforms_tpu_torch.ops.gbt_split import split_level, split_level_reference
+
+    rng = np.random.default_rng(14)
+    F, n_bins = 10, 64
+    result = {}
+    for S, n, depth in SPLIT_SHAPES:
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        binsT = t(rng.integers(0, n_bins, size=(F, n)).astype(np.int32))
+        keep = (rng.random((S, n)) >= 0.46).astype(np.float32)  # held-out and subsampled-out rows weigh nothing
+        g = t(rng.standard_normal((S, n)).astype(np.float32) * keep)
+        h = t(rng.uniform(0, 1, (S, n)).astype(np.float32) * keep)
+        shift = fixed_point_shift(g, h)
+        n_nodes = 2**depth
+        half = n_nodes // 2
+        up = t(rng.integers(0, half, size=(S, n)).astype(np.int32))  # each row's node at the last level
+        node = 2 * up + t(rng.integers(0, 2, size=(S, n)).astype(np.int32))
+        packed = pack_bins(binsT, n_bins)
+        # K1's sums of the level's left children and, from every row at a left child, the last level's nodes
+        q = left_histograms_fixed(binsT, g, h, node, shift, half=half, n_bins=n_bins, packed=packed)
+        parent = left_histograms_fixed(binsT, g, h, 2 * up, shift, half=half, n_bins=n_bins, packed=packed)
+        col = rng.random((S, F)) < 0.8
+        col[:, 0] |= ~col.any(1)
+        args = (q, parent, shift, t(rng.uniform(0, 0.5, S).astype(np.float32)),
+                t(rng.uniform(0.5, 2, S).astype(np.float32)), t(col), t(np.full(S, depth + 1)))
+        for last in (False, True):
+            heaps = [tuple(torch.zeros((S, 2 * n_nodes), dtype=d, device=dev)
+                           for d in (torch.int32, torch.int32, torch.bool)) for _ in range(3)]
+            kw = dict(depth=depth, n_bins=n_bins, last=last)
+            got, again = (split_level(*args, heap, **kw) for heap in heaps[:2])
+            want = split_level_reference(*args, heaps[2], **kw)
+            out = (lambda lv: lv.leaf_sums) if last else (lambda lv: lv.hist)
+            exact = torch.equal(out(got), out(want)) and all(map(torch.equal, heaps[0], heaps[2]))
+            same = torch.equal(out(got), out(again)) and all(map(torch.equal, heaps[0], heaps[1]))
+            split_share = heaps[2][2].float().sum().item() / (S * n_nodes)
+            where = f"S={S} n={n} depth {depth} ({'last' if last else 'inner'} level)"
+            check(same, f"gbt_split is not bit-identical across two calls at {where}")
+            check(exact, f"gbt_split differs from the plain version at {where}")
+
+            ms = graph_ms(torch, lambda: split_level(*args, heaps[0], **kw), 20)
+            call_ms = event_ms(torch, lambda: split_level(*args, heaps[0], **kw), 20)
+            plain_ms = graph_ms(torch, lambda: split_level_reference(*args, heaps[2], **kw), 3)
+            # bytes: K1's sums and the last level's node histograms read once (8 bytes a G or H cell), each
+            # fit's five scalars and column mask, and written once the level's node histograms (inner) or
+            # four int64 leaf sums a node (last) and the 9 bytes of its heap slots; no operation is counted
+            cells = S * n_nodes * F * n_bins
+            nbytes = 2 * 8 * cells + S * (20 + F) + (32 * S * n_nodes if last else 16 * cells) + 9 * S * n_nodes
+            bound_ms, bound_by = bound(nbytes, 0.0)
+            warps = gbt_split._warps(F, gbt_split._library().max_warps)
+            print(f"[gbt_split] {where}: exact and bit-identical, {split_share:.3f} of nodes split; "
+                  f"{S * n_nodes} blocks of {warps} warps; device ms per call (CUDA graph): kernel {ms:.5f}, plain "
+                  f"{plain_ms:.5f}; kernel per call with launch gaps (CUDA events) {call_ms:.5f}; bound "
+                  f"{bound_ms:.6f} ms by {bound_by} ({nbytes / 1e6:.2f} MB)")
+            if (S, n, depth, last) == SPLIT_SWEEP_SHAPE:
+                result = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              warps=warps, split_share=split_share)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2577,6 +2668,7 @@ def main() -> int:
         many_launches = timed("11 many models", phase_many_models, torch, dev, lstm)
         par_launches = timed("12 several ranks", phase_multichip, torch, dev, lstm)
         e2e_launches = timed("13 end to end", phase_e2e, torch, dev, work)
+    split = timed("14 gbt_split", phase_split, torch, dev)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
@@ -2590,6 +2682,8 @@ def main() -> int:
         dict(name="gbt_hist", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_hist.cu",
              replaces="ae_waveforms_tpu/ops/gbt_hist_pallas.py:193",
              launches=classify_launches["gbt_hist"] + par_launches["gbt_hist"] + e2e_launches["gbt_hist"], **hist),
+        dict(name="gbt_split", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_split.cu", replaces=None,
+             launches=classify_launches["gbt_split"] + par_launches["gbt_split"] + e2e_launches["gbt_split"], **split),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -26,15 +26,18 @@ from ae_waveforms_tpu_torch.ops.gbt_hist import (
     left_histograms_reference,
     pack_bins,
 )
+from ae_waveforms_tpu_torch.classify import gbt
 from ae_waveforms_tpu_torch.classify.gbt import GBTEnsemble, _route_leaves
 from ae_waveforms_tpu_torch.ops.gbt_route import (
     route_levels, route_levels_reference, route_rows, route_rows_reference, route_spans,
 )
+from ae_waveforms_tpu_torch.ops.gbt_split import split_level, split_level_reference
 from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused, encode_fused_reference
 from ae_waveforms_tpu_torch.traditional.reconstruction import reconstruct_gaussian_sweep
 from ae_waveforms_tpu_torch.train.checkpoint import tree_leaves
 from ae_waveforms_tpu_torch.train.loop import batch_loss, train_step
 from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
+from test_torch_gbt_split import VARIANTS, level_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -457,6 +460,78 @@ def test_hist_kernel_matches_plain_and_is_deterministic(S, n, half, n_bins, zero
     got = left_histograms(binsT, g, h, node, half=half, n_bins=n_bins)
     torch.testing.assert_close(got, left_histograms_reference(binsT, g, h, node, half=half, n_bins=n_bins),
                                atol=1e-4, rtol=1e-5)
+
+
+# (S, n, F, n_bins, depth, case): the grid search's chunks (27 fits to
+# depth 6, 21 to depth 10, the widest level of each), the study's 96 fits,
+# one fit on 20 and on 149 rows at a level of 256 nodes, the PPV sweep's 25
+# seeds on 35 features, two-byte bins, and the edge cases: nothing
+# feasible, exact ties, gamma pruning, depth limits below the level
+SPLIT_CASES = [
+    (27, 12000, 10, 64, 0, "plain"), (27, 12000, 10, 64, 5, "plain"), (21, 12000, 10, 64, 9, "plain"),
+    (96, 12000, 10, 64, 4, "plain"), (1, 20, 10, 64, 8, "plain"), (1, 149, 10, 64, 8, "plain"),
+    (25, 6000, 35, 64, 3, "plain"), (5, 3000, 10, 300, 3, "plain"), (21, 12000, 10, 64, 6, "infeasible"),
+    (27, 12000, 10, 64, 5, "ties"), (27, 12000, 10, 64, 5, "gamma"), (21, 12000, 10, 64, 7, "limits"),
+]
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["inner", "last"])
+@pytest.mark.parametrize("S,n,F,n_bins,depth,case", SPLIT_CASES)
+def test_split_kernel_matches_plain_bit_for_bit(S, n, F, n_bins, depth, case, last):
+    dev = _card()
+    a = level_inputs(S, n, F, n_bins, depth, seed=depth * 7 + F, dev=dev, **VARIANTS[case])
+    # the kernel writes row views of ensemble heaps, as the fit hands them
+    ens = [tuple(torch.zeros((S, 3, 2**(depth + 1)), dtype=x.dtype, device=dev) for x in a["heap"]) for _ in range(2)]
+    kw = dict(depth=depth, n_bins=n_bins, last=last)
+    before = split_level.launches
+    got = split_level(**{**a, "heap": tuple(x[:, 1] for x in ens[0])}, **kw)
+    assert split_level.launches == before + 1
+    want = split_level_reference(**{**a, "heap": tuple(x[:, 1] for x in ens[1])}, **kw)
+    torch.cuda.synchronize()
+    for key in ("hist", "leaf_sums"):
+        x, y = getattr(got, key), getattr(want, key)
+        assert (x is None) == (y is None) and (x is None or (x.dtype == y.dtype and torch.equal(x, y))), key
+    for x, y in zip(*ens):
+        assert torch.equal(x, y)
+    _, bb, split = (x[:, 1, 2**depth - 1:2**(depth + 1) - 1] for x in ens[1])
+    if case == "infeasible":
+        assert not split.any()
+    elif case == "ties":  # the even bin before each empty odd one wins
+        assert split.any() and (bb[split] % 2 == 0).all()
+    elif case in ("gamma", "limits"):
+        assert split.any() and not split.all()
+
+
+def test_fit_on_the_card_equals_the_fit_on_the_cpu():
+    dev = _card()
+    rng = np.random.default_rng(18)
+    S, n, F, depth, trees = 6, 3000, 10, 6, 12
+    X = rng.standard_normal((n, F)).astype(np.float32)
+    y = (X[:, 0] - X[:, 3] + rng.standard_normal(n) > 0).astype(np.float32)
+    bins = gbt.bin_data(torch.from_numpy(X), torch.from_numpy(gbt.compute_bin_edges(X)))
+    w = (rng.random((S, n)) < 0.7).astype(np.float32)
+    hp = (rng.uniform(0.05, 0.3, S), rng.uniform(0, 2, S), rng.integers(1, 8, S).astype(np.float64),
+          rng.uniform(0.5, 1, S), rng.uniform(0.5, 1, S), rng.integers(trees // 2, trees + 1, S))
+    kw = dict(max_depth=depth, n_estimators=trees, depth_limits=rng.integers(2, depth + 1, S))
+    before = split_level.launches
+    card = gbt.fit_gbt_sweep_margins(bins.to(dev), y, w, np.arange(S), *hp, **kw)
+    assert split_level.launches == before + trees * depth
+    cpu = gbt.fit_gbt_sweep_margins(bins, y, w, np.arange(S), *hp, **kw)
+    (ens_card, margin_card), (ens_cpu, margin_cpu) = card, cpu
+    for name in ("feat", "thresh", "is_split"):
+        assert torch.equal(getattr(ens_card, name).cpu(), getattr(ens_cpu, name)), name
+    assert ens_cpu.is_split.any()
+    assert torch.equal(margin_card.cpu(), margin_cpu)
+
+
+def test_split_level_raises_on_mixed_devices():
+    dev = _card()
+    a = level_inputs(2, 100, 3, 16, 1, seed=1, dev=dev)
+    kw = dict(depth=1, n_bins=16, last=False)
+    for change in (dict(shift=a["shift"].cpu()), dict(parent=a["parent"].cpu()),
+                   dict(heap=(a["heap"][0].cpu(), *a["heap"][1:]))):
+        with pytest.raises(ValueError):
+            split_level(**{**a, **change}, **kw)
 
 
 def test_wrappers_raise_on_unsupported_input():
