@@ -8,15 +8,17 @@ final node id.  Logistic loss, second-order gains with L2 lambda, gamma
 pruning, min_child_weight, per-tree row and column subsampling.
 
 The fit grows S fits at once (the JAX package's vmapped fit axis, written
-out), level by level.  Each level makes one ``left_histograms_fixed`` call
-(the histogram kernel) for all S fits, one ``split_level`` call (the split
-kernel: sibling subtraction, prefix sums, gains, argmax and the level's
-heap slots) and one ``route_rows`` call (the routing kernel).
-``predict_margin`` routes **all trees through all levels in one launch**
-(``route_levels``): the tree axis is the routing kernel's fit axis.  The
-tree loop never waits for the device: nothing in it copies to the host.
-Its phases are spans (``train.profiling``): ``gbt.masks``, ``gbt.grad``
-and ``gbt.leaves`` once a tree, and once a level ``gbt.hist`` and
+out), level by level.  Each tree starts with one ``tree_grad`` call (the
+per-tree kernel K5: masks, g, h, shifts, node ids) and ends with one
+``tree_leaves`` call (K6: leaf weights and margins).  Each level makes one
+``left_histograms_fixed`` call (the histogram kernel) for all S fits, one
+``split_level`` call (the split kernel: sibling subtraction, prefix sums,
+gains, argmax and the level's heap slots) and one ``route_rows`` call (the
+routing kernel).  ``predict_margin`` routes **all trees through all levels
+in one launch** (``route_levels``): the tree axis is the routing kernel's
+fit axis.  The tree loop never waits for the device: nothing in it copies
+to the host.  Its phases are spans (``train.profiling``): ``gbt.grad`` and
+``gbt.leaves`` once a tree, and once a level ``gbt.hist`` and
 ``gbt.route`` (the kernels' calls, spans of their own) around ``gbt.split``.
 
 Numbers.  The histograms are exact integer sums of g and h in fixed point
@@ -26,7 +28,7 @@ bins (an empty bin between them) stays an exact tie.  The sigmoid, the
 gains and the leaf weights work in float64 from those integers.  So a fit
 on the card is bit-identical from run to run and grows the same trees as
 the same fit on the CPU.  Row and column masks come from a counter-based
-hash of (seed, tree, index) in torch integer ops, the same on every device;
+hash of (seed, tree, index) in integer ops, the same on every device;
 ``jax.random``'s streams cannot be reproduced, so the parity tests inject
 the JAX package's masks through ``row_masks`` and ``col_masks``.
 """
@@ -39,9 +41,10 @@ import numpy as np
 import torch
 
 from ae_waveforms_tpu_torch import resolve_device
-from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pack_bins, pow2
+from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed, pack_bins
 from ae_waveforms_tpu_torch.ops.gbt_route import route_levels, route_rows
-from ae_waveforms_tpu_torch.ops.gbt_split import LAMBDA, split_level
+from ae_waveforms_tpu_torch.ops.gbt_split import split_level
+from ae_waveforms_tpu_torch.ops.gbt_tree import subsample_uniforms, tree_grad, tree_leaves
 from ae_waveforms_tpu_torch.train.profiling import span
 
 __all__ = [
@@ -52,8 +55,6 @@ __all__ = [
 
 N_BINS = 64
 BASE_SCORE = 0.0  # margin of base_score 0.5
-_M32 = 0xFFFFFFFF
-_ROW_STREAM, _COL_STREAM = 0x52F1, 0xC07A
 
 
 class GBTEnsemble(NamedTuple):
@@ -76,40 +77,6 @@ def bin_data(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     return torch.searchsorted(edges.contiguous(), X.T.contiguous(), right=True).T.to(torch.int32)
 
 
-def _hash32(x: torch.Tensor) -> torch.Tensor:
-    """lowbias32 (C. Wellons) on int64 tensors that hold uint32 values; its
-    multipliers are below 2^31, so no product leaves int64."""
-    x = x ^ (x >> 16)
-    x = (x * 0x21F0AAAD) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x735A2D97) & _M32
-    return x ^ (x >> 15)
-
-
-def subsample_uniforms(seeds: torch.Tensor, tree: int, count: int, stream: int) -> torch.Tensor:
-    """(S,) integer seeds -> (S, count) float32 uniforms in [0, 1), a hash of
-    (seed, stream, tree, index) in integer ops: the same values on every
-    device, different for every tree."""
-    key = _hash32(_hash32((seeds.long() & _M32) ^ stream) ^ (tree & _M32))
-    u = _hash32((key[:, None] + torch.arange(count, device=seeds.device)) & _M32)
-    return (u >> 8).float() * 2.0**-24
-
-
-def _masks(seeds, tree, n, F, subsamples, colsamples, row_masks, col_masks):
-    """Tree ``tree``'s (S, n) row mask and (S, F) column mask."""
-    if row_masks is not None:
-        sub = row_masks[:, tree]
-    else:
-        sub = subsample_uniforms(seeds, tree, n, _ROW_STREAM) < subsamples[:, None]
-    if col_masks is not None:
-        col = col_masks[:, tree]
-    else:
-        col = subsample_uniforms(seeds, tree, F, _COL_STREAM) < colsamples[:, None]
-    # at least one column: column 0 where the draw kept none
-    first = torch.arange(F, device=col.device) == 0
-    return sub, col | (~col.any(1, keepdim=True) & first)
-
-
 def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_weights,
                  subsamples, colsamples, n_actives, depth_limits, *, max_depth, n_estimators,
                  n_bins, row_masks=None, col_masks=None):
@@ -129,18 +96,13 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
     feat = torch.zeros((S, n_estimators, 2**D), dtype=torch.int32, device=dev)
     thresh = torch.zeros_like(feat)
     is_split = torch.zeros_like(feat, dtype=torch.bool)
-    leaves = []
+    leaf = torch.empty((S, n_estimators, 2**D), dtype=torch.float32, device=dev)
     for t in range(n_estimators):
-        with span("gbt.masks"):
-            sub, col = _masks(seeds, t, n, F, subsamples, colsamples, row_masks, col_masks)
         with span("gbt.grad"):
-            active = (t < n_actives).float()[:, None]
-            w = (row_weights * sub).double()
-            p = torch.sigmoid(margin.double())
-            g = ((p - y) * w).float()
-            h = ((p * (1.0 - p)).clamp_min(1e-16) * w).float()
-            shift = fixed_point_shift(g, h)
-            node_of = torch.zeros((S, n), dtype=torch.int32, device=dev)
+            g, h, node_of, col, shift = tree_grad(
+                margin, y, row_weights, seeds, subsamples, colsamples, tree=t, n_features=F,
+                row_mask=None if row_masks is None else row_masks[:, t],
+                col_mask=None if col_masks is None else col_masks[:, t])
             heap = (feat[:, t], thresh[:, t], is_split[:, t])
 
         hist = None
@@ -156,14 +118,7 @@ def _fit_batched(bins, y, row_weights, seeds, learning_rates, gammas, min_child_
             node_of = route_rows(binsT, node_of, *(x[:, n_nodes - 1:2 * n_nodes - 1] for x in heap))
 
         with span("gbt.leaves"):
-            # a split node's left child holds GL at its split, an unsplit
-            # node's holds all its rows; the right child the rest of the node
-            left, total = level.leaf_sums.view(S, -1, 2, 2).unbind(2)  # (S, nodes, [G, H]) each
-            GH = torch.stack([left, total - left], dim=2).view(S, -1, 2).double() * pow2(-shift)[:, None, None]
-            wleaf = (-GH[..., 0] / (GH[..., 1] + LAMBDA)).float() * active
-            margin = margin + learning_rates[:, None] * torch.gather(wleaf, 1, node_of.long())
-            leaves.append(wleaf)
-    leaf = torch.stack(leaves, 1)
+            tree_leaves(level.leaf_sums, shift, learning_rates, n_actives, node_of, margin, leaf, tree=t)
     return GBTEnsemble(feat, thresh, is_split, leaf, learning_rates), margin
 
 
@@ -175,14 +130,16 @@ def _sweep(bins, y, row_weights, seeds, learning_rates, gammas, min_child_weight
     run ``_fit_batched``."""
     dev = bins.device if isinstance(bins, torch.Tensor) else resolve_device()
     bins = torch.as_tensor(bins, device=dev).to(torch.int32).contiguous()
-    row_weights = torch.as_tensor(row_weights, dtype=torch.float32, device=dev)
+    row_weights = torch.as_tensor(row_weights, dtype=torch.float32, device=dev).contiguous()
     S = row_weights.shape[0]
     per_fit = lambda x, dtype: torch.as_tensor(x, dtype=dtype, device=dev).expand(S).contiguous()  # noqa: E731
     if depth_limits is None:
         depth_limits = max_depth
-    masks = [None if m is None else torch.as_tensor(m, dtype=torch.bool, device=dev) for m in (row_masks, col_masks)]
+    masks = [None if m is None else torch.as_tensor(m, dtype=torch.bool, device=dev).contiguous()
+             for m in (row_masks, col_masks)]
     return _fit_batched(
-        bins, torch.as_tensor(y, dtype=torch.float32, device=dev), row_weights, per_fit(seeds, torch.int64),
+        bins, torch.as_tensor(y, dtype=torch.float32, device=dev).contiguous(), row_weights,
+        per_fit(seeds, torch.int64),
         per_fit(learning_rates, torch.float32), per_fit(gammas, torch.float32),
         per_fit(min_child_weights, torch.float32), per_fit(subsamples, torch.float32),
         per_fit(colsamples, torch.float32), per_fit(n_actives, torch.int64), per_fit(depth_limits, torch.int64),

@@ -28,7 +28,7 @@ __all__ = ["KERNELS", "HOST_SOURCES", "BUILD_DIR", "build", "load"]
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 KERNELS = {"lstm_encoder": "lstm_encoder.cu", "gbt_route": "gbt_route.cu", "gbt_hist": "gbt_hist.cu",
-           "gbt_split": "gbt_split.cu"}
+           "gbt_split": "gbt_split.cu", "gbt_tree": "gbt_tree.cu"}
 #: host C++ built with g++: the float64 delineator of the ``host`` engine
 HOST_SOURCES = {"delineate": "delineate.cpp"}
 GXX_FLAGS = ["-O3", "-march=native", "-shared", "-fPIC", "-ffp-contract=off"]

@@ -214,10 +214,12 @@ def _launch_counts() -> Dict[str, int]:
     from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
     from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
     from ae_waveforms_tpu_torch.ops.gbt_split import split_level
+    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
     from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
     return {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-            "gbt_split": split_level.launches, "lstm_encoder": encode_fused.launches}
+            "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches, "gbt_leaves": tree_leaves.launches,
+            "lstm_encoder": encode_fused.launches}
 
 
 def _jobs_rank(device, jobs) -> Dict:
@@ -236,7 +238,7 @@ def run_sharded(jobs: Sequence[Tuple[str, int, Dict]], devices: Sequence[str], b
                 timeout_s: float = 600.0) -> Dict:
     """Run ``jobs`` ((workload name, model_parallel, kwargs), in order) on
     one rank a device; returns rank 0's {"results": one a job, "launches":
-    the four kernels' launches summed over the ranks, "ranks"}."""
+    the kernels' launches summed over the ranks, "ranks"}."""
     return launch.run(_jobs_rank, (list(jobs),), devices, backend, timeout_s)
 
 

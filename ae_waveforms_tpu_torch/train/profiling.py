@@ -26,7 +26,8 @@ Every range the port opens goes through ``span``.  The names, by phase:
   inside it; ``adam.moments`` and ``adam.update`` inside the last), a step;
   ``train.readback``, ``train.log``, a chunk; ``train.validate``
   (``train.validate.batch``), a validation; ``train.checkpoint``, a save;
-- ``gbt.masks``, ``gbt.grad`` and ``gbt.leaves``, a tree iteration of a fit;
+- ``gbt.grad`` (the per-tree kernel K5's call: masks, g, h, shifts) and
+  ``gbt.leaves`` (K6's: leaf weights, margins), a tree iteration of a fit;
   ``gbt.hist`` (the histogram kernel's call), ``gbt.split`` (the epilogue)
   and ``gbt.route`` (the routing kernel's call), a level;
 - ``gather and loss``, ``dropout`` and ``upsample`` inside the models.

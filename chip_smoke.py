@@ -5,8 +5,8 @@ NVIDIA GPU:
 
 Phases, each of which fails the run:
 
-1. device and build: the card's name and power limit; the four CUDA
-   kernels built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per
+1. device and build: the card's name and power limit; the five CUDA
+   kernel sources built from ``ae_waveforms_tpu_torch/csrc`` (one ``nvcc`` per
    source, in parallel).
 2. the fused LSTM encoder kernel (8-block clusters) against its plain
    version at the serving shape (B=64, T=320, 1->128->64->10), at latent 2
@@ -51,7 +51,8 @@ Phases, each of which fails the run:
    ``cli.classify ppv --vectorized --gs_candidates 12 --seeds 25``, the
    harness at full width.  The histogram, split and routing kernels' launch
    counts must rise, the routing kernel's by one a fit level (as the
-   histogram and split kernels') and one for the PPV sweep's prediction.  Prints the
+   histogram and split kernels') and one for the PPV sweep's prediction,
+   and the per-tree kernels' (K5, K6) by one a tree each.  Prints the
    grid search's and PPV sweep's wall seconds, fold-fits per second, ms per
    tree per fit and the median AUC and PPV.
 7. determinism: a 4-fit sweep on 2,000 rows, fitted twice on the card
@@ -152,9 +153,9 @@ Phases, each of which fails the run:
    ``train_ae_multi`` (bit-identical), a 2-record extraction in chunks of
    8 windows (byte-equal) and the tensor-parallel pair on a (1, 2) grid
    against the unsharded MLP (1e-6; its SGD step 1e-5 + 1e-6), each against
-   its one-device run.  The ranks' launches of K1, K2, K3 and K4 join the
-   ``kernels`` line; each must be above 0, and K4's equal K1's (one a fit
-   level).
+   its one-device run.  The ranks' launches of K1 to K6 join the
+   ``kernels`` line; each must be above 0, K4's equal K1's (one a fit
+   level) and K6's K5's (one a tree).
 13. end to end (``ae_waveforms_tpu_torch.examples.run_e2e`` at the JAX
    example's defaults: 12 synthetic 120-s records, the conv AE at full
    width for 2 epochs): ``cli.extract`` -> ``main_train`` -> ``main_test``
@@ -167,8 +168,9 @@ Phases, each of which fails the run:
    byte-equal and the split masks equal, card against CPU, and the study's
    traditional MSE and RMSE within phase 9's objective tolerance; the test
    RMSE finite, the median PPV above 0.8, the resumed step above 0 and the
-   head's probabilities in [0, 1].  K1's, K2's and K4's launches on the
-   card must equal the count the code gives, and join the ``kernels`` line.
+   head's probabilities in [0, 1].  K1's, K2's, K4's, K5's and K6's
+   launches on the card must equal the count the code gives, and join the
+   ``kernels`` line.
    Prints each stage's wall seconds.
 14. the GBT split kernel (K4, ``ops/gbt_split.py``) at the fit's widest
    levels (the grid search's 27 fits at depth 5 and 21 at depth 9, the
@@ -179,6 +181,14 @@ Phases, each of which fails the run:
    across two calls.  Times the kernel (device ms per call from a CUDA
    graph, and per call with launch gaps from CUDA events) beside the plain
    version and its bound by bytes.
+15. the GBT per-tree kernels (``ops/gbt_tree.py``: K5 ``tree_grad``, the
+   masks, g, h, shifts and node ids; K6 ``tree_leaves``, the leaf weights
+   and margins) at the fit's chunks (the grid search's 27 fits to depth 6
+   and 21 to depth 10, the study's 96, the PPV sweep's 25 on 12,500 rows
+   to depth 8, one fit on 149 rows), K5 with drawn and with injected
+   masks: every output bit-identical to its plain version's and across two
+   calls.  Times each kernel beside its plain version and its bound by
+   bytes, as phase 14.
 
 Prints a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``.  Without a CUDA device it exits non-zero
@@ -736,6 +746,7 @@ def phase_classify(torch):
     from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
     from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
     from ae_waveforms_tpu_torch.ops.gbt_split import split_level
+    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
 
     n_candidates, n_seeds = 12, 25
     cands = lhs_param_dicts(n_candidates, random_state=1)  # the CLI's grid
@@ -759,18 +770,22 @@ def phase_classify(torch):
         write_latent_dir(d)
         cli.grid_search_cv, cli.ppv_analysis = timing("grid", originals[0]), timing("ppv", originals[1])
         left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
+        tree_grad.launches = tree_leaves.launches = 0
         try:
             result = cli.main(["ppv", "--data", d, "--vectorized", "--gs_candidates", str(n_candidates),
                                "--seeds", str(n_seeds)])
         finally:
             cli.grid_search_cv, cli.ppv_analysis = originals
         launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-                    "gbt_split": split_level.launches}
+                    "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches,
+                    "gbt_leaves": tree_leaves.launches}
     print(f"[classify] launches during the classify run: {launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the classify path: {launches}")
     check(launches["gbt_route"] == launches["gbt_hist"] + 1,
           f"a fit level routes in one launch and the PPV prediction in one: {launches}")
     check(launches["gbt_split"] == launches["gbt_hist"], f"a fit level splits in one launch: {launches}")
+    check(launches["gbt_grad"] == launches["gbt_leaves"] < launches["gbt_hist"],
+          f"a fit tree starts and ends in one launch each: {launches}")
     grid_s, gs = timed["grid"]
     ppv_s, _ = timed["ppv"]
     best = gs["best_params"]
@@ -851,6 +866,7 @@ def _split_gains(bins, g, h, rows, splits):
 def phase_determinism(torch, dev):
     from ae_waveforms_tpu_torch.classify import gbt
     from ae_waveforms_tpu_torch.ops.gbt_split import split_level
+    from ae_waveforms_tpu_torch.ops.gbt_tree import ROW_STREAM, subsample_uniforms
 
     rng = np.random.default_rng(7)
     S, n, F, depth, trees = 4, 2000, 10, 6, 20
@@ -885,7 +901,7 @@ def phase_determinism(torch, dev):
             prior = gbt.GBTEnsemble(*(x[s, :t] for x in c[0][:4]), lr=c[0].lr[s])
             m = gbt.predict_margin(prior, torch.from_numpy(bins), depth).double().numpy() if t else np.zeros(n)
             p = 1 / (1 + np.exp(-m))
-            w = weights[s] * (gbt.subsample_uniforms(torch.tensor([s]), t, n, gbt._ROW_STREAM)[0].numpy() < 0.8)
+            w = weights[s] * (subsample_uniforms(torch.tensor([s]), t, n, ROW_STREAM)[0].numpy() < 0.8)
             level = int(np.log2(k + 1))
             node = np.zeros(n, np.int64)  # every row's node at the differing node's level
             cf, ct, cs = (x[s, t].numpy() for x in c[0][:3])
@@ -2396,6 +2412,7 @@ def phase_multichip(torch, dev, lstm):
     print(f"[multichip] kernel launches in the ranks: (a) {a['launches']}, (b) {b['launches']}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched in the ranks: {launches}")
     check(launches["gbt_split"] == launches["gbt_hist"], f"the ranks' fit levels split in one launch: {launches}")
+    check(launches["gbt_grad"] == launches["gbt_leaves"], f"the ranks' fit trees end as they start: {launches}")
     return launches
 
 
@@ -2407,8 +2424,9 @@ GBT_MARGIN_TOL = 5e-3
 
 
 def e2e_predicted_launches(best: dict, latent: int) -> dict:
-    """K1, K2 and K4 launches that the code makes in phase 13's card run: a
-    fit makes one of each a level (``gbt._fit_batched``), a prediction the
+    """K1, K2, K4, K5 and K6 launches that the code makes in phase 13's card
+    run: a fit makes one K1, K2 and K4 a level and one K5 and K6 a tree
+    (``gbt._fit_batched``), a prediction the
     launches of ``route_spans`` (``GBTClassifier.predict_proba``); the
     grid search fits each candidate once a fold and predicts its held-out
     fold, the PPV sweep fits ``best`` once a seed and predicts the test
@@ -2422,10 +2440,12 @@ def e2e_predicted_launches(best: dict, latent: int) -> dict:
     cands = lhs_param_dicts(GS_CANDIDATES, random_state=GS_RANDOM_STATE)
     levels = (GS_FOLDS * sum(p["n_estimators"] * p["max_depth"] for p in cands)
               + PPV_SEEDS * best["n_estimators"] * best["max_depth"] + FLOW_TREES * FLOW_DEPTH)
+    trees = GS_FOLDS * sum(p["n_estimators"] for p in cands) + PPV_SEEDS * best["n_estimators"] + FLOW_TREES
     predicts = (GS_FOLDS * sum(len(route_spans(latent, 0, p["max_depth"])) for p in cands)
                 + PPV_SEEDS * len(route_spans(latent, 0, best["max_depth"]))
                 + len(route_spans(latent, 0, FLOW_DEPTH)))
-    return {"gbt_hist": levels, "gbt_route": levels + predicts, "gbt_split": levels}
+    return {"gbt_hist": levels, "gbt_route": levels + predicts, "gbt_split": levels, "gbt_grad": trees,
+            "gbt_leaves": trees}
 
 
 def recording_gbt(base):
@@ -2491,6 +2511,7 @@ def phase_e2e(torch, dev, work=None):
     from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
     from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
     from ae_waveforms_tpu_torch.ops.gbt_split import split_level
+    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
 
     with workdir(work) as w:
         card_dir, cpu_dir = os.path.join(w, "e2e_card"), os.path.join(w, "e2e_cpu")
@@ -2499,6 +2520,7 @@ def phase_e2e(torch, dev, work=None):
         harness.GBTClassifier = gbt.GBTClassifier = recorded
         try:
             left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
+            tree_grad.launches = tree_leaves.launches = 0
             t0 = time.perf_counter()
             card = run_e2e.main(["--workdir", card_dir, "--device", str(dev)])
             t1 = time.perf_counter()
@@ -2506,7 +2528,8 @@ def phase_e2e(torch, dev, work=None):
             torch.cuda.synchronize()
             t2 = time.perf_counter()
             launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-                        "gbt_split": split_level.launches}
+                        "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches,
+                        "gbt_leaves": tree_leaves.launches}
         finally:
             harness.GBTClassifier, gbt.GBTClassifier = originals
         cpu = run_e2e.run_ae(cpu_dir, device="cpu")
@@ -2626,6 +2649,73 @@ def phase_split(torch, dev):
     return result
 
 
+# phase 15: (S, n, depth): the grid search's chunks (27 fits to depth 6, 21 to depth 10), the study's 96, the PPV
+# sweep's 25 seeds on 12,500 rows (depth 8) and one fit on a fold's 149 rows
+TREE_SHAPES = [(27, 12000, 6), (21, 12000, 10), (96, 12000, 6), (25, 12500, 8), (1, 149, 8)]
+TREE_SWEEP_SHAPE = (21, 12000, 10)  # the deep chunks: the most leaves a tree in the grid search
+
+
+def phase_tree(torch, dev):
+    from ae_waveforms_tpu_torch.ops.gbt_tree import (
+        tree_grad, tree_grad_reference, tree_leaves, tree_leaves_reference,
+    )
+
+    rng = np.random.default_rng(15)
+    F, trees, tree = 10, 8, 7
+    result = {}
+    for S, n, depth in TREE_SHAPES:
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+        where = f"S={S} n={n} depth {depth}"
+        margin = t((rng.standard_normal((S, n)) * 2).astype(np.float32))
+        y = t((rng.random(n) < 0.5).astype(np.float32))
+        w = t((rng.random((S, n)) < 0.67).astype(np.float32))  # a fold's held-out rows weigh nothing
+        rates = t(rng.uniform(0.5, 1, S).astype(np.float32))
+        grad_args = (margin, y, w, t(rng.integers(0, 2**31, S)), rates, rates)
+        masks = dict(row_mask=t(rng.random((S, trees, n)) < 0.7)[:, tree],
+                     col_mask=t(rng.random((S, trees, F)) < 0.6)[:, tree])
+        for kind, kw in (("drawn", {}), ("injected", masks)):
+            kw = dict(kw, tree=tree, n_features=F)
+            got, again = tree_grad(*grad_args, **kw), tree_grad(*grad_args, **kw)
+            want = tree_grad_reference(*grad_args, **kw)
+            check(all(map(torch.equal, got, again)), f"gbt_grad is not bit-identical across two calls at {where}")
+            check(all(map(torch.equal, got, want)), f"gbt_grad differs from the plain version at {where}, {kind} masks")
+        # the last level's leaf sums of realistic size (0 <= HL <= H), rows at random leaves
+        L = 2**depth
+        H = rng.integers(0, 2**42, (S, L // 2))
+        HL = (H * rng.random((S, L // 2))).astype(np.int64)
+        G, GL = rng.integers(-2**41, 2**41, (2, S, L // 2))
+        leaves_args = (t(np.stack([GL, HL, G, H], -1)), got.shift, rates, t(np.full(S, trees)),
+                       t(rng.integers(0, L, (S, n)).astype(np.int32)))
+        outs = [(margin.clone(), torch.zeros((S, trees, L), device=dev)) for _ in range(3)]
+        tree_leaves(*leaves_args, *outs[0], tree=tree)
+        tree_leaves(*leaves_args, *outs[1], tree=tree)
+        tree_leaves_reference(*leaves_args, *outs[2], tree=tree)
+        check(all(map(torch.equal, outs[0], outs[1])), f"gbt_leaves is not bit-identical across two calls at {where}")
+        check(all(map(torch.equal, outs[0], outs[2])), f"gbt_leaves differs from the plain version at {where}")
+
+        kw = dict(tree=tree, n_features=F)
+        timings = {
+            "gbt_grad": (lambda: tree_grad(*grad_args, **kw), lambda: tree_grad_reference(*grad_args, **kw),
+                         # margin, row weight, g, h and node ids a row; y once; seed, rates, shift and columns a fit
+                         20 * S * n + 4 * n + S * (20 + F)),
+            "gbt_leaves": (lambda: tree_leaves(*leaves_args, *outs[0], tree=tree),
+                           lambda: tree_leaves_reference(*leaves_args, *outs[2], tree=tree),
+                           # node id, margin read and written a row; the sums and the leaf written a leaf pair
+                           12 * S * n + 40 * S * L // 2 + 16 * S),
+        }
+        for name, (kernel, plain, nbytes) in timings.items():
+            ms = graph_ms(torch, kernel, 20)
+            call_ms = event_ms(torch, kernel, 20)
+            plain_ms = graph_ms(torch, plain, 3)
+            bound_ms, bound_by = bound(nbytes, 0.0)
+            print(f"[gbt_tree] {name} at {where}: exact and bit-identical; device ms per call (CUDA graph): kernel "
+                  f"{ms:.5f}, plain {plain_ms:.5f}; kernel per call with launch gaps (CUDA events) {call_ms:.5f}; "
+                  f"bound {bound_ms:.6f} ms by {bound_by} ({nbytes / 1e6:.3f} MB)")
+            if (S, n, depth) == TREE_SWEEP_SHAPE:
+                result[name] = dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2641,7 +2731,7 @@ def main() -> int:
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build()
-    print(f"[build] {len(_build.KERNELS)} CUDA kernels and {len(_build.HOST_SOURCES)} host library built in "
+    print(f"[build] {len(_build.KERNELS)} CUDA kernel sources and {len(_build.HOST_SOURCES)} host library built in "
           f"{time.perf_counter() - t0:.2f} s")
     for name in [*_build.KERNELS, *_build.HOST_SOURCES]:
         log = _build.BUILD_DIR / f"{name}.log"
@@ -2669,6 +2759,7 @@ def main() -> int:
         par_launches = timed("12 several ranks", phase_multichip, torch, dev, lstm)
         e2e_launches = timed("13 end to end", phase_e2e, torch, dev, work)
     split = timed("14 gbt_split", phase_split, torch, dev)
+    tree = timed("15 gbt_tree", phase_tree, torch, dev)
 
     kernels = [
         dict(name="lstm_encoder", route="cuda", source="ae_waveforms_tpu_torch/csrc/lstm_encoder.cu",
@@ -2684,6 +2775,9 @@ def main() -> int:
              launches=classify_launches["gbt_hist"] + par_launches["gbt_hist"] + e2e_launches["gbt_hist"], **hist),
         dict(name="gbt_split", route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_split.cu", replaces=None,
              launches=classify_launches["gbt_split"] + par_launches["gbt_split"] + e2e_launches["gbt_split"], **split),
+        *(dict(name=name, route="cuda", source="ae_waveforms_tpu_torch/csrc/gbt_tree.cu", replaces=None,
+               launches=classify_launches[name] + par_launches[name] + e2e_launches[name], **tree[name])
+          for name in ("gbt_grad", "gbt_leaves")),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

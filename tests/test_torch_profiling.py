@@ -98,7 +98,7 @@ def test_gbt_fit_spans_count_levels_and_trees_and_change_nothing():
     with profile(activities=CPU):
         traced = fit_gbt_sweep_margins(bins, y, w, max_depth=depth, n_estimators=trees, n_bins=n_bins, **hp)
     counts = {k: v.count for k, v in profiling.snapshot().stats.items() if k.startswith("gbt.")}
-    assert counts == {"gbt.masks": trees, "gbt.grad": trees, "gbt.leaves": trees, "gbt.hist": trees * depth,
+    assert counts == {"gbt.grad": trees, "gbt.leaves": trees, "gbt.hist": trees * depth,
                       "gbt.split": trees * depth, "gbt.route": trees * depth}
     (ens_p, margin_p), (ens_t, margin_t) = plain, traced
     for a, b in zip(ens_p, ens_t):
