@@ -4,13 +4,15 @@ capability twin of functions_ae/run_train.py).
 The training and validation arrays live on the device.  An epoch is a
 host-side sequence of chunks of steps (``validation_interval`` steps, the
 first chunk one step), each step a batch gather on the device, the forward
-and backward pass and the optimizer update (``train_step``).  The steps'
-losses stay on the device and come to the host once per chunk, as the JAX
-package's scanned chunk returns them; learning rates are computed on the
-host from the step count.  Validation runs between chunks, exactly at the
-reference's cadence (after local steps 0, V, 2V, ... of each epoch,
-run_train.py:317-319), with the model in eval mode: the encoder then runs
-through the fused encoder kernel, one launch per validation batch.
+and backward pass and the optimizer update (``train_step``; on the card,
+with the port's Adam, one captured CUDA graph replayed from a call's second
+step on).  The steps' losses stay on the device and come to the host once
+per chunk, as the JAX package's scanned chunk returns them; learning rates
+are computed on the host from the step count.  Validation runs between
+chunks, exactly at the reference's cadence (after local steps 0, V, 2V,
+... of each epoch, run_train.py:317-319), with the model in eval mode: the
+encoder then runs through the fused encoder kernel, one launch per
+validation batch.
 
 Replicated behaviours: loss/optimizer/scheduler selection
 (run_train.py:205-248), every-10-steps CSV logging (:305-309), validation
@@ -46,6 +48,7 @@ import logging
 import math
 import os
 import time
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -61,7 +64,7 @@ from ae_waveforms_tpu_torch.parallel.mesh import Grid, all_reduce_sum_, broadcas
 from ae_waveforms_tpu_torch.train import checkpoint as ckpt
 from ae_waveforms_tpu_torch.train.data import layout_waves, split_datasets
 from ae_waveforms_tpu_torch.train.logs import CsvLogs, make_tracker, setup_logging
-from ae_waveforms_tpu_torch.train.optimizers import make_optimizer
+from ae_waveforms_tpu_torch.train.optimizers import Adam, make_optimizer
 from ae_waveforms_tpu_torch.train.profiling import span
 from ae_waveforms_tpu_torch.train.schedules import (
     cosine_annealing_warm_restarts,
@@ -151,27 +154,139 @@ def batch_loss(model: nn.Module, data_x: torch.Tensor, idx: torch.Tensor, mask: 
         return _finalize_loss(loss_kind, total / mask.to(total.dtype).sum().clamp_min(1.0), 1.0)
 
 
+def _step_body(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
+               mask: torch.Tensor, generator, rate: float, loss_kind: str, update: Callable[[], None]) -> torch.Tensor:
+    """A step's work: the batch's loss (``batch_loss``), its backward inside
+    ``cudnn_fp32`` as the forward runs (cuDNN's RNN backward reads the TF32
+    flag when it runs, not when its forward ran), then ``update``, each a
+    span (``train.forward``, ``train.backward``, ``train.optimizer``).
+    Returns the loss, detached."""
+    with span("train.forward"):
+        loss = batch_loss(model, data_x, idx, mask, generator, rate, loss_kind)
+    with span("train.backward"):
+        optimizer.zero_grad(set_to_none=True)
+        with cudnn_fp32():
+            loss.backward()
+    with span("train.optimizer"):
+        update()
+    return loss.detach()
+
+
+class _StepGraph:
+    """One optimizer's training step as a captured CUDA graph: ``key``, what
+    the capture depends on; the side stream of the warm-up and the capture;
+    then the graph, and the tensors its replays read (the batch's rows and
+    mask, copied in before each replay) and write (the loss)."""
+
+    def __init__(self, key: tuple, stream):
+        self.key, self.stream = key, stream
+        self.graph = self.idx = self.mask = self.loss = None
+
+
+# each optimizer's step graph; an entry goes with its optimizer, and holds no reference to it
+_graphs: "weakref.WeakKeyDictionary[torch.optim.Optimizer, _StepGraph]" = weakref.WeakKeyDictionary()
+
+
+def _graphable(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, generator) -> bool:
+    """Whether the step can be one captured graph: the data on the card, the
+    port's Adam (the one optimizer that reads its per-step scalars from
+    device memory), the model in train mode and dropout drawn from a
+    generator on the card."""
+    return (data_x.is_cuda and isinstance(optimizer, Adam) and model.training
+            and isinstance(generator, torch.Generator) and generator.device.type == "cuda")
+
+
+def _graph_key(model, optimizer, data_x, idx, mask, generator, rate, loss_kind) -> tuple:
+    """What a captured step reads from where: the model, the generator,
+    ``data_x``'s storage and shape, B and the dtypes of the rows and mask,
+    the rate and the loss, the model's mode, and the storage of every
+    parameter and of the optimizer's moments."""
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    moments = [optimizer.state[p].get(k) for p in params for k in ("mu", "nu")]
+    return (model, generator, data_x.data_ptr(), tuple(data_x.shape), data_x.dtype, tuple(idx.shape), idx.dtype,
+            mask.dtype, rate, loss_kind, model.training, tuple(p.data_ptr() for p in params),
+            tuple(0 if m is None else m.data_ptr() for m in moments))
+
+
+def _capture(g: _StepGraph, model, optimizer, data_x, idx, mask, generator, rate, loss_kind) -> None:
+    """Captures ``_step_body`` with Adam's device half on ``g.stream``, the
+    dropout generator registered so that each replay moves its offset as an
+    eager step does.  The gradients are let go first, so that the backward
+    makes them in the graph's own memory."""
+    g.idx, g.mask = idx.clone(), mask.clone()
+    optimizer.zero_grad(set_to_none=True)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    current = torch.cuda.current_stream(data_x.device)
+    g.stream.wait_stream(current)
+    with torch.cuda.stream(g.stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            g.loss = _step_body(model, optimizer, data_x, g.idx, g.mask, generator, rate, loss_kind,
+                                optimizer.apply_loaded)
+        finally:
+            graph.capture_end()
+    current.wait_stream(g.stream)
+    g.graph = graph
+    _counted.captures += 1
+
+
+def _graphed_step(model, optimizer, data_x, idx, mask, generator, rate, loss_kind) -> torch.Tensor:
+    """``train_step``'s step through the optimizer's step graph: with a key
+    the graph has not seen, an eager step on a side stream (it makes the
+    optimizer's state and warms cuDNN and the allocator); at the next call
+    with the same key, the capture; then a replay, in which the host copies
+    the batch's rows and mask in, writes Adam's per-step scalars and
+    launches the graph.  The spans ``train.capture`` and ``train.replay``."""
+    key = _graph_key(model, optimizer, data_x, idx, mask, generator, rate, loss_kind)
+    g = _graphs.get(optimizer)
+    if g is None or g.key != key:
+        stream = torch.cuda.Stream(data_x.device)
+        current = torch.cuda.current_stream(data_x.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            loss = _step_body(model, optimizer, data_x, idx, mask, generator, rate, loss_kind, optimizer.step)
+        current.wait_stream(stream)
+        loss.record_stream(current)
+        _graphs[optimizer] = _StepGraph(_graph_key(model, optimizer, data_x, idx, mask, generator, rate, loss_kind),
+                                        stream)
+        return loss
+    optimizer.load_step()
+    if g.graph is None:
+        with span("train.capture"):
+            _capture(g, model, optimizer, data_x, idx, mask, generator, rate, loss_kind)
+    with span("train.replay"):
+        g.idx.copy_(idx)
+        g.mask.copy_(mask)
+        g.graph.replay()
+        _counted.replays += 1
+        return g.loss.clone()
+
+
 def train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,
                mask: torch.Tensor, lr: float, generator: torch.Generator, rate: float, loss_kind: str) -> torch.Tensor:
-    """One step on the batch ``data_x[idx]`` (``batch_loss``); returns the
-    batch's loss before the update, on the device.  The backward pass runs
-    inside ``cudnn_fp32`` as the forward does: cuDNN's RNN backward reads
-    the TF32 flag when it runs, not when its forward ran.  The optimizer
-    marks its own step for ``torch.profiler``; the step and its three
-    phases are spans (``train.step``: ``train.forward``, ``train.backward``,
-    ``train.optimizer``)."""
+    """One step on the batch ``data_x[idx]`` at learning rate ``lr``
+    (``_step_body``); returns the batch's loss before the update, on the
+    device, a tensor of its own each call.  The step is a span,
+    ``train.step``.
+
+    On the card, with the port's Adam and the model in train mode, the
+    step runs as one captured CUDA graph a step (``_graphed_step``), keyed
+    on what it reads: the first call with a new key is eager, the next
+    captures, and every later one replays.  The results are the eager
+    step's, bit for bit where its kernels are deterministic.  Counted in
+    ``train_step.captures`` and ``train_step.replays``."""
     with span("train.step"):
-        with span("train.forward"):
-            loss = batch_loss(model, data_x, idx, mask, generator, rate, loss_kind)
-        with span("train.backward"):
-            optimizer.zero_grad(set_to_none=True)
-            with cudnn_fp32():
-                loss.backward()
-        with span("train.optimizer"):
-            for group in optimizer.param_groups:
-                group["lr"] = lr
-            optimizer.step()
-        return loss.detach()
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        if _graphable(model, optimizer, data_x, generator):
+            return _graphed_step(model, optimizer, data_x, idx, mask, generator, rate, loss_kind)
+        return _step_body(model, optimizer, data_x, idx, mask, generator, rate, loss_kind, optimizer.step)
+
+
+train_step.captures = 0
+train_step.replays = 0
+_counted = train_step  # the counters' function, whatever a caller rebinds the module's name to
 
 
 def sharded_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, data_x: torch.Tensor, idx: torch.Tensor,

@@ -21,6 +21,8 @@ are written here with optax's math:
 
 from __future__ import annotations
 
+from typing import Dict, List, Optional, Tuple
+
 import numpy as np
 import torch
 
@@ -36,43 +38,59 @@ class Adam(torch.optim.Optimizer):
     chain of foreach ops, each group's betas, eps, bias corrections and
     learning rate as per-tensor scalars: the stacked trainers hold one
     group a config).  The moments' update and the parameters' are spans,
-    ``adam.moments`` and ``adam.update``."""
+    ``adam.moments`` and ``adam.update``.
+
+    ``step`` passes the per-step scalars (the bias corrections and -lr) to
+    its ops as host numbers.  ``load_step`` and ``apply_loaded`` split the
+    same step in two for a captured CUDA graph: the first counts the step
+    on the host and writes each group's per-step scalars, computed as
+    ``step`` computes them, into device tensors of its own; the second is
+    the step's device work, reading them there, so that one capture of it
+    serves every step.  Both give ``step``'s results bit for bit."""
 
     def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8, weight_decay: float = 0.0):
         super().__init__(params, dict(lr=lr, betas=tuple(betas), eps=eps, weight_decay=weight_decay))
+        self._loaded: Dict[int, Dict[str, torch.Tensor]] = {}  # group index -> its per-step scalars on the device
 
-    @torch.no_grad()
-    def step(self, closure=None):
-        loss = None
-        if closure is not None:
-            with torch.enable_grad():
-                loss = closure()
-        ps, gs, sc = [], [], {k: [] for k in ("c1", "b1", "c2", "b2", "bias1", "bias2", "eps", "neg_lr")}
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            gps = [p for p in group["params"] if p.grad is not None]
-            if not gps:
-                continue
-            ggs = [p.grad for p in gps]
-            if group["weight_decay"]:
-                ggs = torch._foreach_add(ggs, torch._foreach_mul(gps, group["weight_decay"]))
-            for p in gps:
-                state = self.state[p]
-                if not state:
-                    state["step"] = 0
-                    state["mu"] = torch.zeros_like(p)
-                    state["nu"] = torch.zeros_like(p)
-                state["step"] += 1
-            t = np.float32(self.state[gps[0]]["step"])
-            values = dict(c1=1 - b1, b1=b1, c2=1 - b2, b2=b2, bias1=float(np.float32(1) - np.float32(b1) ** t),
-                          bias2=float(np.float32(1) - np.float32(b2) ** t), eps=group["eps"],
-                          neg_lr=-float(np.float32(group["lr"])))
-            for k, v in values.items():
-                sc[k] += [v] * len(gps)
-            ps += gps
-            gs += ggs
-        if not ps:
-            return loss
+    def _count(self, group) -> Optional[Dict[str, float]]:
+        """Counts a step in the state of each of ``group``'s parameters that
+        has a gradient (the state made at the first) and returns the group's
+        per-step scalars, in float32 as optax computes them; None where no
+        parameter has a gradient."""
+        gps = [p for p in group["params"] if p.grad is not None]
+        if not gps:
+            return None
+        for p in gps:
+            state = self.state[p]
+            if not state:
+                state["step"] = 0
+                state["mu"] = torch.zeros_like(p)
+                state["nu"] = torch.zeros_like(p)
+            state["step"] += 1
+        b1, b2 = group["betas"]
+        t = np.float32(self.state[gps[0]]["step"])
+        return dict(bias1=float(np.float32(1) - np.float32(b1) ** t), bias2=float(np.float32(1) - np.float32(b2) ** t),
+                    neg_lr=-float(np.float32(group["lr"])))
+
+    @staticmethod
+    def _grads(group) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """``group``'s parameters that have a gradient, and their gradients
+        with the coupled weight decay folded in."""
+        gps = [p for p in group["params"] if p.grad is not None]
+        ggs = [p.grad for p in gps]
+        if gps and group["weight_decay"]:
+            ggs = torch._foreach_add(ggs, torch._foreach_mul(gps, group["weight_decay"]))
+        return gps, ggs
+
+    @staticmethod
+    def _constants(group) -> Dict[str, float]:
+        b1, b2 = group["betas"]
+        return dict(c1=1 - b1, b1=b1, c2=1 - b2, b2=b2, eps=group["eps"])
+
+    def _update(self, ps, gs, sc) -> None:
+        """The moments and the parameters of ``ps`` from their gradients
+        ``gs``; ``sc`` holds each scalar as one number a tensor, or the
+        per-step ones as one device tensor for them all."""
         mu = [self.state[p]["mu"] for p in ps]
         nu = [self.state[p]["nu"] for p in ps]
         with span("adam.moments"):
@@ -85,7 +103,53 @@ class Adam(torch.optim.Optimizer):
             denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, sc["bias2"])), sc["eps"])
             updates = torch._foreach_div(torch._foreach_div(mu, sc["bias1"]), denom)
             torch._foreach_add_(ps, torch._foreach_mul(updates, sc["neg_lr"]))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        loss = None
+        if closure is not None:
+            with torch.enable_grad():
+                loss = closure()
+        ps, gs, sc = [], [], {k: [] for k in ("c1", "b1", "c2", "b2", "eps", "bias1", "bias2", "neg_lr")}
+        for group in self.param_groups:
+            gps, ggs = self._grads(group)
+            values = self._count(group)
+            if values is None:
+                continue
+            for k, v in {**self._constants(group), **values}.items():
+                sc[k] += [v] * len(gps)
+            ps += gps
+            gs += ggs
+        if ps:
+            self._update(ps, gs, sc)
         return loss
+
+    @torch.no_grad()
+    def load_step(self) -> None:
+        """The host half of a step: counts it, as ``step`` does, and writes
+        each group's bias corrections and -lr into its device tensors (made
+        at the first call) with ``fill_``, whose kernels carry the values,
+        so no host buffer is read later."""
+        for i, group in enumerate(self.param_groups):
+            values = self._count(group)
+            if values is None:
+                continue
+            loaded = self._loaded.get(i)
+            if loaded is None:
+                p = group["params"][0]
+                loaded = self._loaded[i] = {k: torch.zeros((), dtype=p.dtype, device=p.device) for k in values}
+            for k, v in values.items():
+                loaded[k].fill_(v)
+
+    @torch.no_grad()
+    def apply_loaded(self) -> None:
+        """The device half of a step: ``step``'s update of each group with
+        the per-step scalars that ``load_step`` wrote, read on the device."""
+        for i, group in enumerate(self.param_groups):
+            gps, ggs = self._grads(group)
+            if gps:
+                constants = {k: [v] * len(gps) for k, v in self._constants(group).items()}
+                self._update(gps, ggs, {**constants, **self._loaded[i]})
 
 
 class Adagrad(torch.optim.Optimizer):

@@ -24,6 +24,8 @@ Every range the port opens goes through ``span``.  The names, by phase:
 - ``train.schedule`` (the learning rate and the batch rows) and
   ``train.step`` (``train.forward``, ``train.backward``, ``train.optimizer``
   inside it; ``adam.moments`` and ``adam.update`` inside the last), a step;
+  a step replayed from a captured graph holds ``train.replay`` instead, and
+  the call that captures it ``train.capture`` before that;
   ``train.readback``, ``train.log``, a chunk; ``train.validate``
   (``train.validate.batch``), a validation; ``train.checkpoint``, a save;
 - ``gbt.grad`` (the per-tree kernel K5's call: masks, g, h, shifts) and

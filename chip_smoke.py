@@ -63,8 +63,9 @@ Phases, each of which fails the run:
    width (B=128, T=320, Adam, StepLR, mse, dropout 0.2): 16,384 synthetic
    beats over 128 case ids, ``-m train`` for 2 epochs (validation every 25
    steps), then ``-m test`` on its run.  Every loss must be finite, the last
-   validation loss below the first, every weight moved from its init, the
-   encoder kernel launched once per validation and test batch, and the test
+   validation loss below the first, every weight moved from its init, every
+   step after the first replayed from one captured graph, the encoder
+   kernel launched once per validation and test batch, and the test
    pass's latents and reconstructions within 2e-5 and 1e-4 of the CPU's
    ``main_test`` on the same run.  From one init with dropout 0, 10 steps at
    B=32 on the card, again on the card and on the CPU: losses within rtol
@@ -74,11 +75,12 @@ Phases, each of which fails the run:
    miss that.  Prints ms per train step (p50 from CUDA events, outside the
    profiled steps), beats/s, the host's time to issue a step, ms per
    validation, the test pass's wall ms and latents/s, where 20 steps'
-   device time goes by group, with the idle share and the optimizer's host
-   time, and Adam's host time beside ``torch.optim.Adam(fused=True)``'s,
-   whose 10 steps are held against the CPU's.  The beats' np_features hold
-   fiducials at the generator's wave centres (about 5% of P's dropped),
-   which training never reads.
+   device time goes by group (where the steps run eager: torch.profiler
+   links a replayed graph's kernels to no op), with the idle share and the
+   optimizer's host time, and Adam's host time beside
+   ``torch.optim.Adam(fused=True)``'s, whose 10 steps are held against the
+   CPU's.  The beats' np_features hold fiducials at the generator's wave
+   centres (about 5% of P's dropped), which training never reads.
 9. the conv autoencoder and the reconstruction study, on phase 8's data
    and LSTM run: ``cli.main_ae -m train --model_class
    LeNet5AutoencoderAvgPool`` (1->16->32->64->128->10, the same cut and
@@ -970,7 +972,15 @@ def train_breakdown(torch, tag: str, groups, prof, idle_prof, steps: int, idle_w
     step's (``traced_host_ms``, in the same window); the idle share from
     ``idle_prof``, which traced kernels alone over ``steps`` other steps of
     ``idle_wall_ms``, as serve_breakdown does (tracing CPU ops slows the
-    host)."""
+    host).  With ``groups`` None (steps replayed from a captured graph,
+    whose kernels torch.profiler links to no op) the idle share alone."""
+    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
+               for e in idle_prof.key_averages()) / steps / 1e3
+    idle = (f"{steps} steps with kernels alone traced: device busy {busy:.4f} of {idle_wall_ms / steps:.4f} ms wall "
+            f"per step, idle share {1 - busy * steps / idle_wall_ms:.3f}")
+    if groups is None:
+        print(f"[{tag}] device time by group not measured (the steps replay a captured graph); {idle}")
+        return
     per = dict.fromkeys([*groups, "other"], 0.0)
     for e in prof.events():
         us = sum(k.duration for k in getattr(e, "kernels", []))
@@ -980,16 +990,13 @@ def train_breakdown(torch, tag: str, groups, prof, idle_prof, steps: int, idle_w
             a = a.cpu_parent
         if us:
             per[name or "other"] += us / steps / 1e3
-    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0))
-               for e in idle_prof.key_averages()) / steps / 1e3
     if sum(per.values()) == 0 or busy == 0:
         print(f"[{tag}] breakdown not measured: torch.profiler linked no kernel to an op or recorded none")
         return
     opt_host = sum(e.cpu_time_total for e in prof.events() if e.name.startswith("Optimizer.step")) / steps / 1e3
     print(f"[{tag}] {steps} steps profiled, device ms per step: " + ", ".join(f"{k} {v:.4f}" for k, v in per.items())
           + f" (sum {sum(per.values()):.4f}); host ms per step with CPU ops traced: the optimizer's step "
-          f"{opt_host:.4f} of {traced_host_ms:.4f}; {steps} more with kernels alone traced: device busy {busy:.4f} "
-          f"of {idle_wall_ms / steps:.4f} ms wall per step, idle share {1 - busy * steps / idle_wall_ms:.3f}")
+          f"{opt_host:.4f} of {traced_host_ms:.4f}; {steps} more {idle}")
 
 
 def instrumented_train(torch, args):
@@ -1036,6 +1043,7 @@ def instrumented_train(torch, args):
 
     loop.train_step, loop.validate = timed_step, timed_validate
     encode_fused.launches = 0
+    graphed = orig_step.captures, orig_step.replays
     try:
         t0 = time.perf_counter()
         run_dir = main_ae.autoencoder(["-m", "train", *args])
@@ -1043,7 +1051,8 @@ def instrumented_train(torch, args):
     finally:
         loop.train_step, loop.validate = orig_step, orig_validate
     return dict(run_dir=run_dir, train_s=train_s, steps=steps, host_ms=host_ms, validations=validations, prof=prof,
-                launches=encode_fused.launches)
+                launches=encode_fused.launches, captures=orig_step.captures - graphed[0],
+                replays=orig_step.replays - graphed[1])
 
 
 def training_readings(torch, tag: str, rec, model_class: str, groups, batch: int):
@@ -1076,14 +1085,18 @@ def training_readings(torch, tag: str, rec, model_class: str, groups, batch: int
           f"the profiled steps in {float(np.median(step_ms[10:])):.4f}); host ms "
           f"to issue a step min {np.min(host_ms[timed]):.4f}, p50 {np.median(host_ms[timed]):.4f} "
           f"(the host waits where the card's queue is full)")
+    print(f"[{tag}] step graph: {rec['captures']} capture, {rec['replays']} of {len(steps)} steps replayed")
+    check(rec["captures"] == 1 and rec["replays"] == len(steps) - 1,
+          f"the step graph captured {rec['captures']} times and replayed {rec['replays']} of {len(steps)} steps")
     print(f"[{tag}] MFU at the p50 step: {mfu_of(torch, train_flops(model_class) * batch, p50):.5f} of the card's "
           f"float32 peak (core/flops.py: {train_flops(model_class) * batch / 1e9:.3f} GFLOP a step of B={batch})")
     print(f"[{tag}] {len(validations)} validations of {validations[0][2]} batches: ms per validation p50 "
           f"{float(np.median(val_ms)):.3f} (wall, synchronised); validation loss {val_losses[0]:.6f} -> "
           f"{val_losses[-1]:.6f}")
     if (IDLE_STEPS, "ms") in prof:
-        train_breakdown(torch, tag, groups, prof[PROFILE_STEPS], prof[IDLE_STEPS], IDLE_STEPS[1] - IDLE_STEPS[0],
-                        prof[IDLE_STEPS, "ms"], float(np.mean(host_ms[PROFILE_STEPS[0]:PROFILE_STEPS[1]])))
+        train_breakdown(torch, tag, None if rec["replays"] else groups, prof[PROFILE_STEPS], prof[IDLE_STEPS],
+                        IDLE_STEPS[1] - IDLE_STEPS[0], prof[IDLE_STEPS, "ms"],
+                        float(np.mean(host_ms[PROFILE_STEPS[0]:PROFILE_STEPS[1]])))
 
     check(bool(np.all(np.isfinite(losses))) and bool(np.all(np.isfinite(val_losses))), "a training loss is not finite")
     check(val_losses[-1] < val_losses[0], f"the validation loss did not fall: {val_losses[0]} -> {val_losses[-1]}")

@@ -128,6 +128,119 @@ def test_train_step_gradients_keep_full_float32_under_tf32_flags():
     assert tf32_err > 1e-4
 
 
+def _toy_arrays(n_cases=24, per_case=16, seed=0):
+    """384 random 320-sample beats of 24 case ids."""
+    from ae_waveforms_tpu_torch.core.schema import ArraySet
+
+    n = n_cases * per_case
+    info = np.stack([np.repeat(np.arange(n_cases) + 100, per_case), np.arange(n)], 1).astype(np.float64)
+    waves = np.random.default_rng(seed).standard_normal((n, 320)).astype(np.float32)
+    return ArraySet(waves, np.zeros((n, 35), np.float32), info)
+
+
+def _recorded_main_train(root, model_class, graphed, max_steps, resume_dir=None):
+    """``main_train`` on the card (B = 32, validation every 5 steps, dropout
+    0.2, the cosine schedule, so a new learning rate every step), in a data
+    and results dir of its own under ``root``; with ``graphed`` False the
+    step is kept eager.  Returns the run dir, the counters' moves and, per
+    step, the loss and every parameter, first and second moment and step
+    count after it."""
+    from ae_waveforms_tpu_torch.core.config import TrainConfig
+    from ae_waveforms_tpu_torch.train import loop
+
+    cfg = TrainConfig(dataset_dir=os.path.join(root, "data"), results_dir=os.path.join(root, "results"), seed=0,
+                      model_class=model_class, batch_size=32, validation_interval=5, dropout=0.2,
+                      split_size_val=0.2, split_size_test=0.1, lr_scheduler_type="CosineAnnealing", plotting=False)
+    records, step, graphable = [], loop.train_step, loop._graphable
+
+    def recorded(model, optimizer, *args):
+        loss = step(model, optimizer, *args)
+        params = list(model.parameters())
+        records.append((loss, [p.detach().clone() for p in params],
+                        [optimizer.state[p][k].clone() for p in params for k in ("mu", "nu")],
+                        [optimizer.state[p]["step"] for p in params]))
+        return loss
+
+    before = (train_step.captures, train_step.replays)
+    loop.train_step = recorded
+    if not graphed:
+        loop._graphable = lambda *a: False
+    try:
+        run = loop.main_train(cfg, _toy_arrays(), max_steps=max_steps, resume_dir=resume_dir, device=_card())
+    finally:
+        loop.train_step, loop._graphable = step, graphable
+    torch.cuda.synchronize()
+    return run, (train_step.captures - before[0], train_step.replays - before[1]), records
+
+
+def _assert_same_steps(got, want):
+    assert len(got) == len(want)
+    for k, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a[0], b[0]), f"step {k}: loss {float(a[0])} != {float(b[0])}"
+        assert all(torch.equal(x, y) for x, y in zip(a[1], b[1])), f"step {k}: parameters"
+        assert all(torch.equal(x, y) for x, y in zip(a[2], b[2])), f"step {k}: moments"
+        assert a[3] == b[3], f"step {k}: step counts"
+
+
+@pytest.mark.parametrize("model_class", ["LSTMAutoencoder", "LeNet5AutoencoderAvgPool"])
+def test_train_step_graph_equals_eager_steps(tmp_path, model_class):
+    """20 steps or a few more (``max_steps`` ends a chunk) of ``main_train``
+    on the card, its step a captured graph replayed from the second call
+    on, against the same run with the step kept eager, from the same seed:
+    every loss, parameter, moment and step count equal bit for bit, through
+    a new learning rate every step, validations and checkpoints between
+    replays; and again over 8 steps or more resumed from each run's last
+    checkpoint.  The conv autoencoder's backward sums with atomics (cuDNN's,
+    and the upsample's index_add), so its two runs are compared under
+    ``torch.use_deterministic_algorithms``; the LSTM autoencoder's as the
+    trainer runs it."""
+    from ae_waveforms_tpu_torch.train import checkpoint as ckpt
+
+    deterministic = model_class != "LSTMAutoencoder"
+    torch.use_deterministic_algorithms(deterministic)
+    try:
+        runs = {graphed: _recorded_main_train(str(tmp_path / f"{graphed}"), model_class, graphed, 20)
+                for graphed in (True, False)}
+        n = len(runs[True][2])
+        assert n >= 20 and runs[True][1] == (1, n - 1) and runs[False][1] == (0, 0)
+        _assert_same_steps(runs[True][2], runs[False][2])
+        assert len({float(r[0]) for r in runs[True][2]}) == n
+        assert len({r[0].data_ptr() for r in runs[True][2]}) == n
+        resumed = {}
+        for graphed in (True, False):
+            at = int(ckpt.load_train_state(ckpt.latest_resumable(runs[graphed][0]))["step"])
+            assert at > 1
+            resumed[graphed] = _recorded_main_train(str(tmp_path / f"resumed-{graphed}"), model_class, graphed, at + 8,
+                                                    resume_dir=runs[graphed][0])
+        n = len(resumed[True][2])
+        assert n >= 8 and resumed[True][1] == (1, n - 1) and resumed[False][1] == (0, 0)
+        _assert_same_steps(resumed[True][2], resumed[False][2])
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def test_train_step_graph_captures_again_for_new_shapes_or_data():
+    """Three steps at B = 16, three at B = 8, then three on new data: each
+    set runs one eager step, captures at the next and replays it; every
+    call's loss is a finite tensor of its own."""
+    dev = _card()
+    model = LSTMAutoencoder(generator=torch.Generator().manual_seed(4), device=dev).train()
+    optimizer = make_optimizer("adam", model.parameters(), 1e-3)
+    generator = torch.Generator(device=dev).manual_seed(0)
+    before = (train_step.captures, train_step.replays)
+    losses, moves = [], []
+    for B, x in ((16, _beats(64, dev)), (8, None), (8, _beats(64, dev, seed=1))):
+        data = x if x is not None else data
+        for k in range(3):
+            idx = torch.arange(B, device=dev, dtype=torch.int32) + 4 * k
+            losses.append(train_step(model, optimizer, data, idx, torch.ones(B, dtype=torch.bool, device=dev), 1e-3,
+                                     generator, 0.2, "mse"))
+        moves.append((train_step.captures - before[0], train_step.replays - before[1]))
+    assert moves == [(1, 2), (2, 4), (3, 6)]
+    assert len({loss.data_ptr() for loss in losses}) == len(losses)
+    assert all(bool(torch.isfinite(loss)) for loss in losses)
+
+
 def test_encode_fused_refuses_autograd():
     """The kernel has no backward: under grad it raises on the card rather
     than hand back a latent that gradients cannot reach through."""
