@@ -16,9 +16,8 @@ Conventions (the standard MFU accounting):
   bf16 tensor-core rate is within its reach.
 
 Reference workloads these model: the AE training step
-(functions_ae/run_train.py:282-364 at main_ae.py:58-66 defaults), the
-DL-classifier epoch (main_dl_classify.py:63-105), and the GBT histogram
-sweep (main_ae_classify.py:57-77).
+(functions_ae/run_train.py:282-364 at main_ae.py:58-66 defaults) and the
+DL-classifier epoch (main_dl_classify.py:63-105).
 """
 
 from __future__ import annotations
@@ -29,7 +28,7 @@ __all__ = [
     "lstm_layer_fwd_flops", "lstm_ae_fwd_flops_per_sample",
     "lstm_ae_train_flops_per_sample", "conv_ae_fwd_flops_per_sample",
     "conv_ae_train_flops_per_sample", "dl_classifier_fwd_flops_per_sample",
-    "dl_classifier_train_flops_per_model_epoch", "gbt_hist_flops_per_fit",
+    "dl_classifier_train_flops_per_model_epoch",
     "PEAKS", "device_peak", "device_peak_flops", "mfu",
 ]
 
@@ -127,21 +126,6 @@ def dl_classifier_train_flops_per_model_epoch(
     the validation forward."""
     f = dl_classifier_fwd_flops_per_sample(T)
     return 3 * f * n_train + f * n_val
-
-
-def gbt_hist_flops_per_fit(n: int, F: int, n_bins: int, max_depth: int,
-                           n_estimators: int) -> int:
-    """The GBT fit's histogram work counted as the JAX package's dense
-    form counts it: the per-level left-child histogram contraction
-    A (2*half, n) @ onehot (n, F*n_bins) summed over levels
-    0..max_depth-1 (half = 2^max(d-1, 0)), per tree.  Routing expansions,
-    prefix-sum matmuls and split scoring are excluded (lower bound)."""
-    fb = F * n_bins
-    per_tree = 0
-    for d in range(max_depth):
-        half = max(2 ** max(d - 1, 0), 1)
-        per_tree += 2 * (2 * half) * n * fb
-    return per_tree * n_estimators
 
 
 def mfu(achieved_flops_per_s: float, name: Optional[str] = None) -> float:

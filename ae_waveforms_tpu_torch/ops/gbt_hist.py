@@ -184,22 +184,11 @@ def hist_plan(S: int, n: int, F: int, n_bins: int, half: int, active: Mapping[in
     return HistPlan(C, NT, FT, walks, S * walks, THREADS, SMEM_BYTES)
 
 
-@functools.cache
-def _library():
-    lib = _build.load("gbt_hist")
-    lib.gbt_hist_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-    lib.gbt_hist_launch.restype = ctypes.c_int
-    lib.gbt_hist_max_active_clusters.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.gbt_hist_max_active_clusters.restype = ctypes.c_int
-    lib.gbt_hist_max_cells.restype = ctypes.c_int
-    return lib
-
-
 def max_active_clusters(cluster: int) -> int:
     """How many clusters of ``cluster`` blocks of the kernel's layout the
     current card holds at once (``cudaOccupancyMaxActiveClusters``)."""
     active = ctypes.c_int(0)
-    rc = _library().gbt_hist_max_active_clusters(cluster, THREADS, SMEM_BYTES, ctypes.byref(active))
+    rc = _build.load("gbt_hist").gbt_hist_max_active_clusters(cluster, THREADS, SMEM_BYTES, ctypes.byref(active))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError_t {rc}")
     return active.value
@@ -213,32 +202,6 @@ def active_clusters(device_index: int) -> dict:
         return {C: max_active_clusters(C) for C in CLUSTER_SIZES}
 
 
-def _check(binsT, g, h, node_of, shift) -> None:
-    F, n = binsT.shape
-    S = g.shape[0]
-    dev = node_of.device
-    for name, t, dtype, shape in (
-        ("binsT", binsT, torch.int32, (F, n)),
-        ("g", g, torch.float32, (S, n)),
-        ("h", h, torch.float32, (S, n)),
-        ("node_of", node_of, torch.int32, (S, n)),
-        ("shift", shift, torch.int32, (S,)),
-    ):
-        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
-def _check_packed(packed, F: int, n: int, n_bins: int, dev) -> None:
-    W = -(-F * _bin_bytes(n_bins) // 16) * 16
-    if packed.device != dev or packed.dtype != torch.uint8 or tuple(packed.shape) != (n, W):
-        raise ValueError(f"packed: expected pack_bins' torch.uint8 {(n, W)} on {dev}, "
-                         f"got {packed.dtype} {tuple(packed.shape)} on {packed.device}")
-    if not packed.is_contiguous() or packed.data_ptr() % 16:
-        raise ValueError("packed must be contiguous and 16-byte aligned")
-
-
 def left_histograms_fixed(binsT, g, h, node_of, shift, *, half: int, n_bins: int,
                           packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-level left-child G/H histograms as exact int64 sums of g and h
@@ -249,44 +212,40 @@ def left_histograms_fixed(binsT, g, h, node_of, shift, *, half: int, n_bins: int
     not given).  g and h must be finite.
 
     On a CUDA tensor this launches the kernel with the plan of
-    ``hist_plan`` for the card (counted in ``left_histograms_fixed.launches``);
-    on a CPU tensor it runs the plain version on ``binsT`` (``packed``, where
-    given, is checked and not read).  A wrong dtype, shape or device raises
+    ``hist_plan`` for the card (counted in ``_build.launches``); on a CPU
+    tensor it runs the plain version on ``binsT`` (``packed``, where given,
+    is checked and not read).  A wrong dtype, shape or device raises
     ``ValueError``, as do more bins than a block's shared memory holds; a
     launch error raises ``RuntimeError``.  The call is a span, ``gbt.hist``."""
     with span("gbt.hist"):
-        if node_of.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"left_histograms runs on CUDA or CPU tensors, got {node_of.device}")
+        dev = _build.device(node_of, "left_histograms")
         if half < 1 or n_bins < 1:
             raise ValueError(f"need half >= 1 and n_bins >= 1, got half={half}, n_bins={n_bins}")
-        _check(binsT, g, h, node_of, shift)
         F, n = binsT.shape
         S = g.shape[0]
+        for name, t, dtype, shape in (("binsT", binsT, torch.int32, (F, n)), ("g", g, torch.float32, (S, n)),
+                                      ("h", h, torch.float32, (S, n)), ("node_of", node_of, torch.int32, (S, n)),
+                                      ("shift", shift, torch.int32, (S,))):
+            _build.check(name, t, dev, dtype, shape)
         if packed is not None:
-            _check_packed(packed, F, n, n_bins, node_of.device)
-        if node_of.device.type == "cpu":
+            _build.check("packed", packed, dev, torch.uint8, (n, -(-F * _bin_bytes(n_bins) // 16) * 16))
+            if packed.data_ptr() % 16:
+                raise ValueError(f"packed: expected pack_bins' 16-byte aligned rows on {dev}, "
+                                 f"got address {packed.data_ptr():#x}")
+        if node_of.is_cpu:
             return left_histograms_fixed_reference(binsT, g, h, node_of, shift, half=half, n_bins=n_bins)
         if S > 65535:
             raise ValueError(f"at most 65535 fits per call, got {S}")
-        out = torch.empty((S, 2 * half, F * n_bins), dtype=torch.int64, device=node_of.device)
+        out = torch.empty((S, 2 * half, F * n_bins), dtype=torch.int64, device=dev)
         if n == 0 or F == 0 or S == 0:
             return out.zero_()
-        plan = hist_plan(S, n, F, n_bins, half, active_clusters(node_of.device.index))
+        plan = hist_plan(S, n, F, n_bins, half, active_clusters(dev.index))
         if packed is None:
             packed = pack_bins(binsT, n_bins)
-        with torch.cuda.device(node_of.device):  # ctypes launches on the thread's current device
-            rc = _library().gbt_hist_launch(
-                packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                S, n, packed.shape[1], _bin_bytes(n_bins), F, n_bins, half, plan.cluster, plan.node_tile,
-                plan.feature_tile, plan.threads, plan.smem_bytes, torch.cuda.current_stream(node_of.device).cuda_stream,
-            )
-        if rc != 0:
-            raise RuntimeError(f"gbt_hist kernel launch failed: cudaError_t {rc}")
-        left_histograms_fixed.launches += 1
+        _build.launch(_build.load("gbt_hist").gbt_hist_launch, dev, packed.data_ptr(), g.data_ptr(), h.data_ptr(),
+                      node_of.data_ptr(), shift.data_ptr(), out.data_ptr(), S, n, packed.shape[1], _bin_bytes(n_bins),
+                      F, n_bins, half, plan.cluster, plan.node_tile, plan.feature_tile, plan.threads, plan.smem_bytes)
         return out
-
-
-left_histograms_fixed.launches = 0
 
 
 def left_histograms(binsT, g, h, node_of, *, half: int, n_bins: int,

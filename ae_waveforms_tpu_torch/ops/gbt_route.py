@@ -15,13 +15,12 @@ chunk of fits and the tile of rows a block takes.  ``route_spans`` splits a
 level range into the launches whose tables fit.  ``route_rows`` and
 ``route_levels`` launch the kernel for CUDA tensors and run
 ``route_rows_reference`` and ``route_levels_reference`` for CPU tensors;
-nothing falls back from one to the other.  Both entries count their
-launches in ``route_rows.launches``.
+nothing falls back from one to the other.  Both count their launches in
+``_build.launches["gbt_route"]``.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 from typing import NamedTuple, Optional
@@ -198,68 +197,37 @@ def route_spans(F: int, d0: int, d1: int) -> list:
     return spans
 
 
-# gbt_route_launch's arguments: the pool and its two strides, the node ids
-# in, the three tables and their row strides, the ids out, twelve ints (the
-# shape and the plan) and the stream
-LAUNCH_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-
-
-@functools.cache
-def _launcher(lib: Optional[ctypes.CDLL] = None):
-    """``gbt_route_launch`` of ``lib``, by default the library built from
-    ``csrc/gbt_route.cu``."""
-    fn = (lib or _build.load("gbt_route")).gbt_route_launch
-    fn.argtypes = LAUNCH_ARGTYPES
-    fn.restype = ctypes.c_int
-    return fn
-
-
 @functools.cache
 def _sms(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _launch(bins_t, node_of, feat, thresh, split, S: int, width: int, levels: int,
-            plan: Optional[RoutePlan] = None, lib: Optional[ctypes.CDLL] = None) -> torch.Tensor:
-    """Check the CUDA tensors and launch the kernel: rows down ``levels``
-    levels, the first ``width`` nodes wide, whose splits start at column 0
-    of feat, thresh and split; ``node_of`` None starts every row at node 0.
-    ``plan`` (by default ``route_plan``'s) and ``lib`` (by default the
-    built kernel) let tools/route_profile.py time other plans and builds."""
+def _launch(bins_t, node_of, feat, thresh, split, S: int, width: int, levels: int) -> torch.Tensor:
+    """Check the CUDA tensors and launch the kernel with ``route_plan``'s
+    plan: rows down ``levels`` levels, the first ``width`` nodes wide, whose
+    splits start at column 0 of feat, thresh and split; ``node_of`` None
+    starts every row at node 0."""
     dev = feat.device
     F, n = bins_t.shape
     nodes = width * (2**levels - 1)
-    if bins_t.device != dev or bins_t.dtype != torch.int32:
-        raise ValueError(f"bins: expected torch.int32 on {dev}, got {bins_t.dtype} on {bins_t.device}")
+    _build.check("bins", bins_t, dev, torch.int32, (F, n), "any")
     if node_of is not None:
-        if node_of.device != dev or node_of.dtype != torch.int32 or tuple(node_of.shape) != (S, n):
-            raise ValueError(f"node_of: expected torch.int32 {(S, n)} on {dev}, "
-                             f"got {node_of.dtype} {tuple(node_of.shape)} on {node_of.device}")
-        if not node_of.is_contiguous():
-            raise ValueError("node_of must be contiguous")
+        _build.check("node_of", node_of, dev, torch.int32, (S, n))
         if node_of.data_ptr() % 16:  # a view into another array: the kernel loads 16-byte groups
             node_of = node_of.clone()
     for name, t, dtype in (("feat", feat, torch.int32), ("thresh", thresh, torch.int32), ("split", split, torch.bool)):
-        if t.device != dev or t.dtype != dtype or t.dim() != 2 or t.shape[0] != S or t.shape[1] < nodes:
-            raise ValueError(f"{name}: expected {dtype} ({S}, >= {nodes}) on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if nodes > 1 and t.stride(1) != 1:
-            raise ValueError(f"{name} needs a unit column stride")
+        # a table may be wider than the launch's levels, never narrower
+        cols = max(t.shape[-1], nodes) if t.ndim == 2 else nodes
+        _build.check(name, t, dev, dtype, (S, cols), "rows" if nodes > 1 else "any")
     out = torch.empty((S, n), dtype=torch.int32, device=dev)
     if S * n == 0:
         return out
-    plan = plan or route_plan(S, n, F, levels, width, _sms(dev.index))
-    with torch.cuda.device(dev):  # ctypes launches on the thread's current device
-        rc = _launcher(lib)(
-            bins_t.data_ptr(), bins_t.stride(0), bins_t.stride(1), 0 if node_of is None else node_of.data_ptr(),
-            feat.data_ptr(), thresh.data_ptr(), split.data_ptr(), feat.stride(0), thresh.stride(0), split.stride(0),
-            out.data_ptr(), S, n, F, width, levels, plan.chunk, plan.tile, plan.vec, int(plan.staged), plan.blocks,
-            plan.threads, plan.smem_bytes, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gbt_route kernel launch failed: cudaError_t {rc}")
-    route_rows.launches += 1
+    plan = route_plan(S, n, F, levels, width, _sms(dev.index))
+    _build.launch(_build.load("gbt_route").gbt_route_launch, dev, bins_t.data_ptr(), bins_t.stride(0),
+                  bins_t.stride(1), 0 if node_of is None else node_of.data_ptr(), feat.data_ptr(), thresh.data_ptr(),
+                  split.data_ptr(), feat.stride(0), thresh.stride(0), split.stride(0), out.data_ptr(), S, n, F, width,
+                  levels, plan.chunk, plan.tile, plan.vec, int(plan.staged), plan.blocks, plan.threads,
+                  plan.smem_bytes)
     return out
 
 
@@ -270,15 +238,14 @@ def route_rows(binsT, node_of, bf, bb, do_split) -> torch.Tensor:
     ``binsT`` may be any (F, n) view.  ``bf``, ``bb`` and ``do_split`` may
     be column slices of larger per-tree arrays (unit column stride, any row
     stride), so a level of a tree heap is routed without a copy.  On a CUDA
-    tensor this launches the kernel (counted in ``route_rows.launches``); on
+    tensor this launches the kernel (counted in ``_build.launches``); on
     a CPU tensor it runs the plain version.  A wrong dtype, shape or device
     raises ``ValueError``, a launch error ``RuntimeError``.  The call is a
     span, ``gbt.route``."""
     with span("gbt.route"):
-        if node_of.device.type == "cpu":
+        _build.device(node_of, "route_rows")
+        if node_of.is_cpu:
             return route_rows_reference(binsT, node_of, bf, bb, do_split)
-        if node_of.device.type != "cuda":
-            raise ValueError(f"route_rows runs on CUDA or CPU tensors, got {node_of.device}")
         S, n_nodes = bf.shape
         for name, t in (("bb", bb), ("do_split", do_split)):
             if tuple(t.shape) != (S, n_nodes):
@@ -299,17 +266,14 @@ def route_levels(bins_t, node_of: Optional[torch.Tensor], feat, thresh, is_split
     columns [2^d - 1, 2^(d+1) - 1), M >= 2^d1 - 1, unit column stride.  The
     same as ``route_rows`` level by level, ids outside a level taking the
     left spine.  CUDA tensors launch the kernel (counted in
-    ``route_rows.launches``), CPU tensors run ``route_levels_reference``."""
+    ``_build.launches``), CPU tensors run ``route_levels_reference``."""
     if not 0 <= d0 <= d1:
         raise ValueError(f"need 0 <= d0 <= d1, got d0={d0}, d1={d1}")
-    if feat.device.type == "cpu" or d0 == d1:
+    _build.device(feat, "route_levels")
+    if feat.is_cpu or d0 == d1:
         return route_levels_reference(bins_t, node_of, feat, thresh, is_split, d0, d1)
-    if feat.device.type != "cuda":
-        raise ValueError(f"route_levels runs on CUDA or CPU tensors, got {feat.device}")
     for d, e in route_spans(bins_t.shape[0], d0, d1):
         c = 2**d - 1
         node_of = _launch(bins_t, node_of, feat[:, c:], thresh[:, c:], is_split[:, c:], feat.shape[0], 2**d, e - d)
     return node_of
 
-
-route_rows.launches = 0

@@ -35,7 +35,6 @@ torch's separate ops round it, so the two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
 
@@ -102,13 +101,9 @@ def split_level_reference(q, parent, shift, gammas, min_child_weights, col, dept
 
 
 @functools.cache
-def _library():
-    lib = _build.load("gbt_split")
-    lib.gbt_split_launch.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] * 2
-                                     + [ctypes.c_int] * 5 + [ctypes.c_double, ctypes.c_int, ctypes.c_void_p])
-    lib.gbt_split_launch.restype = ctypes.c_int
-    lib.max_warps = lib.gbt_split_max_warps()
-    return lib
+def _max_warps() -> int:
+    """The most warps a block of the kernel has (``gbt_split_max_warps``)."""
+    return _build.load("gbt_split").gbt_split_max_warps()
 
 
 def _warps(F: int, max_warps: int) -> int:
@@ -119,10 +114,9 @@ def _warps(F: int, max_warps: int) -> int:
     return -(-F // rounds)
 
 
-def _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth: int, n_bins: int) -> None:
-    dev = q.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"split_level runs on CUDA or CPU tensors, got {dev}")
+def _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth: int,
+           n_bins: int) -> torch.device:
+    dev = _build.device(q, "split_level")
     if depth < 0 or n_bins < 1:
         raise ValueError(f"need depth >= 0 and n_bins >= 1, got depth={depth}, n_bins={n_bins}")
     if q.dim() != 3 or q.shape[2] % n_bins:
@@ -139,18 +133,14 @@ def _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap,
             raise ValueError(f"parent: the last level's node histograms are needed at depth {depth}")
         expected.append(("parent", parent, torch.int64, (S, 2 * half, FB)))
     for name, t, dtype, shape in expected:
-        if t.device != dev or t.dtype != dtype or t.shape != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        _build.check(name, t, dev, dtype, shape)
     if len(heap) != 3:
         raise ValueError(f"heap: expected (feat, thresh, is_split), got {len(heap)} tensors")
     for name, t, dtype in zip(("feat", "thresh", "is_split"), heap, (torch.int32, torch.int32, torch.bool)):
-        if t.device != dev or t.dtype != dtype or t.dim() != 2 or t.shape[0] != S or t.shape[1] < 2 * n_nodes - 1:
-            raise ValueError(f"heap {name}: expected {dtype} ({S}, >= {2 * n_nodes - 1}) on {dev}, "
-                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-        if t.stride(1) != 1:
-            raise ValueError(f"heap {name} needs a unit column stride")
+        # a heap row holds at least the slots up to this level's
+        cols = max(t.shape[-1], 2 * n_nodes - 1) if t.ndim == 2 else 2 * n_nodes - 1
+        _build.check(f"heap {name}", t, dev, dtype, (S, cols), "rows")
+    return dev
 
 
 def split_level(q, parent, shift, gammas, min_child_weights, col, depth_limits,
@@ -168,36 +158,26 @@ def split_level(q, parent, shift, gammas, min_child_weights, col, depth_limits,
     the node histograms.
 
     On a CUDA tensor this launches the kernel (counted in
-    ``split_level.launches``); on a CPU tensor it runs the plain version.
+    ``_build.launches``); on a CPU tensor it runs the plain version.
     A wrong dtype, shape or device raises ``ValueError``, a launch error
     ``RuntimeError``."""
-    _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth, n_bins)
+    dev = _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth, n_bins)
     kw = dict(depth=depth, n_bins=n_bins, last=last)
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return split_level_reference(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, **kw)
     S, FB = q.shape[0], q.shape[2]
     F, n_nodes = FB // n_bins, 2**depth
     if S > 65535:
         raise ValueError(f"at most 65535 fits per call, got {S}")
-    dev = q.device
     hist = None if last else torch.empty((S, 2 * n_nodes, FB), dtype=torch.int64, device=dev)
     leaf_sums = torch.empty((S, n_nodes, 4), dtype=torch.int64, device=dev) if last else None
     slot = n_nodes - 1  # the level's first heap slot
     feat, thresh, is_split = heap
-    lib = _library()
-    with torch.cuda.device(dev):  # ctypes launches on the thread's current device
-        rc = lib.gbt_split_launch(
-            q.data_ptr(), 0 if parent is None else parent.data_ptr(), shift.data_ptr(), gammas.data_ptr(),
-            min_child_weights.data_ptr(), col.data_ptr(), depth_limits.data_ptr(), feat.data_ptr() + 4 * slot,
-            thresh.data_ptr() + 4 * slot, is_split.data_ptr() + slot, feat.stride(0), thresh.stride(0),
-            is_split.stride(0), 0 if leaf_sums is None else leaf_sums.data_ptr(),
-            0 if hist is None else hist.data_ptr(), S, n_nodes, F, n_bins, depth, LAMBDA, _warps(F, lib.max_warps),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gbt_split kernel launch failed: cudaError_t {rc}")
-    split_level.launches += 1
+    _build.launch(_build.load("gbt_split").gbt_split_launch, dev, q.data_ptr(),
+                  0 if parent is None else parent.data_ptr(), shift.data_ptr(), gammas.data_ptr(),
+                  min_child_weights.data_ptr(), col.data_ptr(), depth_limits.data_ptr(), feat.data_ptr() + 4 * slot,
+                  thresh.data_ptr() + 4 * slot, is_split.data_ptr() + slot, feat.stride(0), thresh.stride(0),
+                  is_split.stride(0), 0 if leaf_sums is None else leaf_sums.data_ptr(),
+                  0 if hist is None else hist.data_ptr(), S, n_nodes, F, n_bins, depth, LAMBDA, _warps(F, _max_warps()))
     return SplitLevel(hist, leaf_sums)
 
-
-split_level.launches = 0

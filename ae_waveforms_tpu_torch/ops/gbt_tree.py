@@ -26,8 +26,6 @@ two agree bit for bit.
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import NamedTuple, Optional
 
 import torch
@@ -103,35 +101,6 @@ def tree_leaves_reference(leaf_sums, shift, learning_rates, n_actives, node_of, 
     margin.add_(learning_rates[:, None] * torch.gather(wleaf, 1, node_of.long()))
 
 
-@functools.cache
-def _library():
-    lib = _build.load("gbt_tree")
-    lib.gbt_grad_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
-                                    + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    lib.gbt_grad_launch.restype = ctypes.c_int
-    lib.gbt_leaves_launch.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-                                      + [ctypes.c_longlong, ctypes.c_double, ctypes.c_void_p])
-    lib.gbt_leaves_launch.restype = ctypes.c_int
-    return lib
-
-
-def _check(name: str, t, dev, dtype, shape, rows_view: bool = False) -> None:
-    """``t`` is a ``dtype`` tensor of ``shape`` on ``dev``, contiguous or,
-    with ``rows_view``, with a unit last stride (a row view of a larger
-    array)."""
-    if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected {dtype} {shape} on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if not (t.stride(-1) == 1 if rows_view else t.is_contiguous()):
-        raise ValueError(f"{name} must be {'a view with a unit last stride' if rows_view else 'contiguous'}")
-
-
-def _device(t) -> torch.device:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"the per-tree kernels run on CUDA or CPU tensors, got {t.device}")
-    return t.device
-
-
 def tree_grad(margin, y, row_weights, seeds, subsamples, colsamples, *, tree: int, n_features: int,
               row_mask: Optional[torch.Tensor] = None, col_mask: Optional[torch.Tensor] = None) -> TreeGrad:
     """Tree ``tree``'s masks, g, h, shifts and fresh node ids for S fits
@@ -144,10 +113,10 @@ def tree_grad(margin, y, row_weights, seeds, subsamples, colsamples, *, tree: in
     (S, T, ...) masks does), replace the drawn masks where given.  Returns
     new tensors.
 
-    On CUDA tensors this launches K5 (counted in ``tree_grad.launches``); on
+    On CUDA tensors this launches K5 (counted in ``_build.launches``); on
     CPU tensors it runs the plain version.  A wrong dtype, shape or device
     raises ``ValueError``, a launch error ``RuntimeError``."""
-    dev = _device(margin)
+    dev = _build.device(margin, "tree_grad")
     if margin.dim() != 2 or tree < 0 or n_features < 1:
         raise ValueError(f"need (S, n) margins, tree >= 0 and n_features >= 1, got {tuple(margin.shape)}, "
                          f"tree={tree}, n_features={n_features}")
@@ -157,29 +126,22 @@ def tree_grad(margin, y, row_weights, seeds, subsamples, colsamples, *, tree: in
                                   ("row_weights", row_weights, torch.float32, (S, n)),
                                   ("seeds", seeds, torch.int64, (S,)), ("subsamples", subsamples, torch.float32, (S,)),
                                   ("colsamples", colsamples, torch.float32, (S,))):
-        _check(name, t, dev, dtype, shape)
+        _build.check(name, t, dev, dtype, shape)
     for name, t, shape in (("row_mask", row_mask, (S, n)), ("col_mask", col_mask, (S, F))):
         if t is not None:
-            _check(name, t, dev, torch.bool, shape, rows_view=True)
+            _build.check(name, t, dev, torch.bool, shape, "rows")
     kw = dict(tree=tree, n_features=F, row_mask=row_mask, col_mask=col_mask)
-    if dev.type == "cpu":
+    if margin.is_cpu:
         return tree_grad_reference(margin, y, row_weights, seeds, subsamples, colsamples, **kw)
     g, h = torch.empty((2, S, n), dtype=torch.float32, device=dev)
     node_of = torch.empty((S, n), dtype=torch.int32, device=dev)
     col = torch.empty((S, F), dtype=torch.bool, device=dev)
     shift = torch.empty(S, dtype=torch.int32, device=dev)
     masks = [(0, 0) if m is None else (m.data_ptr(), m.stride(0)) for m in (row_mask, col_mask)]
-    lib = _library()
-    with torch.cuda.device(dev):  # ctypes launches on the thread's current device
-        rc = lib.gbt_grad_launch(
-            margin.data_ptr(), y.data_ptr(), row_weights.data_ptr(), seeds.data_ptr(), subsamples.data_ptr(),
-            colsamples.data_ptr(), *masks[0], *masks[1], g.data_ptr(), h.data_ptr(), node_of.data_ptr(),
-            col.data_ptr(), shift.data_ptr(), S, n, F, tree, 62 - max(n - 1, 0).bit_length(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gbt_grad kernel launch failed: cudaError_t {rc}")
-    tree_grad.launches += 1
+    _build.launch(_build.load("gbt_tree").gbt_grad_launch, dev, margin.data_ptr(), y.data_ptr(), row_weights.data_ptr(),
+                  seeds.data_ptr(), subsamples.data_ptr(), colsamples.data_ptr(), *masks[0], *masks[1], g.data_ptr(),
+                  h.data_ptr(), node_of.data_ptr(), col.data_ptr(), shift.data_ptr(), S, n, F, tree,
+                  62 - max(n - 1, 0).bit_length())
     return TreeGrad(g, h, node_of, col, shift)
 
 
@@ -193,10 +155,10 @@ def tree_leaves(leaf_sums, shift, learning_rates, n_actives, node_of, margin, le
     [0, L); margin (S, n) float32, updated; leaf (S, T, L) float32, the
     ensemble's leaves, unit last stride, L a power of two, at least 2.
 
-    On CUDA tensors this launches K6 (counted in ``tree_leaves.launches``);
+    On CUDA tensors this launches K6 (counted in ``_build.launches``);
     on CPU tensors it runs the plain version.  A wrong dtype, shape or
     device raises ``ValueError``, a launch error ``RuntimeError``."""
-    dev = _device(margin)
+    dev = _build.device(margin, "tree_leaves")
     if margin.dim() != 2 or leaf.dim() != 3 or not 0 <= tree < leaf.shape[1]:
         raise ValueError(f"need (S, n) margins, (S, T, L) leaves and 0 <= tree < T, got {tuple(margin.shape)}, "
                          f"{tuple(leaf.shape)}, tree={tree}")
@@ -209,23 +171,12 @@ def tree_leaves(leaf_sums, shift, learning_rates, n_actives, node_of, margin, le
                                   ("learning_rates", learning_rates, torch.float32, (S,)),
                                   ("n_actives", n_actives, torch.int64, (S,)),
                                   ("node_of", node_of, torch.int32, (S, n)), ("margin", margin, torch.float32, (S, n))):
-        _check(name, t, dev, dtype, shape)
-    _check("leaf", leaf, dev, torch.float32, (S, leaf.shape[1], L), rows_view=True)
-    if dev.type == "cpu":
+        _build.check(name, t, dev, dtype, shape)
+    _build.check("leaf", leaf, dev, torch.float32, (S, leaf.shape[1], L), "rows")
+    if margin.is_cpu:
         return tree_leaves_reference(leaf_sums, shift, learning_rates, n_actives, node_of, margin, leaf, tree=tree)
     if S > 65535:
         raise ValueError(f"at most 65535 fits per call, got {S}")
-    lib = _library()
-    with torch.cuda.device(dev):
-        rc = lib.gbt_leaves_launch(
-            leaf_sums.data_ptr(), shift.data_ptr(), learning_rates.data_ptr(), n_actives.data_ptr(),
-            node_of.data_ptr(), margin.data_ptr(), leaf.data_ptr() + 4 * tree * leaf.stride(1), leaf.stride(0), S, n,
-            L, tree, LAMBDA, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"gbt_leaves kernel launch failed: cudaError_t {rc}")
-    tree_leaves.launches += 1
-
-
-tree_grad.launches = 0
-tree_leaves.launches = 0
+    _build.launch(_build.load("gbt_tree").gbt_leaves_launch, dev, leaf_sums.data_ptr(), shift.data_ptr(),
+                  learning_rates.data_ptr(), n_actives.data_ptr(), node_of.data_ptr(), margin.data_ptr(),
+                  leaf.data_ptr() + 4 * tree * leaf.stride(1), leaf.stride(0), S, n, L, tree, LAMBDA)

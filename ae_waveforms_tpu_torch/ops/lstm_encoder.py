@@ -20,7 +20,6 @@ run where autograd would want a graph through it.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Dict, NamedTuple
 
 import torch
@@ -101,37 +100,20 @@ def encoder_plan(B: int, H1: int, H2: int, L: int, T: int = 320) -> EncoderPlan:
     return EncoderPlan(R, -(-B // R), smem)
 
 
-@functools.cache
-def _library():
-    lib = _build.load("lstm_encoder")
-    lib.lstm_encoder_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    lib.lstm_encoder_launch.restype = ctypes.c_int
-    lib.lstm_encoder_max_active_clusters.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
-    lib.lstm_encoder_max_active_clusters.restype = ctypes.c_int
-    return lib
-
-
 def max_active_clusters(plan: EncoderPlan, H1: int, H2: int, L: int, T: int = 320) -> int:
     """How many clusters of ``plan`` the current card holds at once
     (``cudaOccupancyMaxActiveClusters``)."""
     active = ctypes.c_int(0)
-    rc = _library().lstm_encoder_max_active_clusters(T, H1, H2, L, *plan, ctypes.byref(active))
+    rc = _build.load("lstm_encoder").lstm_encoder_max_active_clusters(T, H1, H2, L, *plan, ctypes.byref(active))
     if rc != 0:
         raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: cudaError_t {rc}")
     return active.value
 
 
-def _check_layer(p: Dict, in_features: int, name: str, device: torch.device) -> int:
+def _check_layer(p: Dict, in_features: int, name: str, dev: torch.device) -> int:
     H = p["w_hh"].shape[1]
-    shapes = {"w_ih": (4 * H, in_features), "w_hh": (4 * H, H), "b_ih": (4 * H,), "b_hh": (4 * H,)}
-    for k, shape in shapes.items():
-        t = p[k]
-        if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != device
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"{name}.{k}: expected contiguous float32 {shape} on {device}, "
-                f"got {t.dtype} {tuple(t.shape)} on {t.device}"
-            )
+    for k, shape in (("w_ih", (4 * H, in_features)), ("w_hh", (4 * H, H)), ("b_ih", (4 * H,)), ("b_hh", (4 * H,))):
+        _build.check(f"{name}.{k}", p[k], dev, torch.float32, shape)
     return H
 
 
@@ -139,21 +121,19 @@ def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
     """LSTM-AE encoder latent (B, latent) of x (B, T, 1) float32.
 
     On a CUDA tensor this launches the kernel with the plan of
-    ``encoder_plan`` (and counts the launch in ``encode_fused.launches``);
+    ``encoder_plan`` (and counts the launch in ``_build.launches``);
     on a CPU tensor it runs the plain version.  On a CUDA tensor it raises
     when grad is enabled and x or a weight requires grad: the kernel writes
     its output outside autograd, so the latent would carry no gradient."""
-    if x.device.type == "cpu":
+    dev = _build.device(x, "encode_fused")
+    if x.is_cpu:
         return encode_fused_reference(params, x)
-    if x.device.type != "cuda":
-        raise ValueError(f"encode_fused runs on CUDA or CPU tensors, got {x.device}")
     p1, p2, p3 = params["enc1"], params["enc2"], params["enc3"]
     weights = [p[k] for p in (p1, p2, p3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
-    if x.dtype != torch.float32 or x.dim() != 3 or x.shape[2] != 1 or not x.is_contiguous():
-        raise ValueError(f"x must be a contiguous float32 (B, T, 1) tensor, got {x.dtype} {tuple(x.shape)}")
-    H1 = _check_layer(p1, 1, "enc1", x.device)
-    H2 = _check_layer(p2, H1, "enc2", x.device)
-    L = _check_layer(p3, H2, "enc3", x.device)
+    _build.check("x", x, dev, torch.float32, (*x.shape[:2], 1))  # (B, T, 1)
+    H1 = _check_layer(p1, 1, "enc1", dev)
+    H2 = _check_layer(p2, H1, "enc2", dev)
+    L = _check_layer(p3, H2, "enc3", dev)
     B, T, _ = x.shape
     plan = encoder_plan(B, H1, H2, L, T)
     if torch.is_grad_enabled() and (x.requires_grad or any(w.requires_grad for w in weights)):
@@ -161,18 +141,9 @@ def encode_fused(params: Dict, x: torch.Tensor) -> torch.Tensor:
             "encode_fused has no backward: call it under torch.no_grad(), or train the model in "
             "train() mode, where the encoder runs as LSTM layers"
         )
-    out = torch.empty((B, L), dtype=torch.float32, device=x.device)
+    out = torch.empty((B, L), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    with torch.cuda.device(x.device):  # ctypes launches on the thread's current device
-        rc = _library().lstm_encoder_launch(
-            x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
-            B, T, H1, H2, L, *plan, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"lstm_encoder kernel launch failed: cudaError_t {rc}")
-    encode_fused.launches += 1
+    _build.launch(_build.load("lstm_encoder").lstm_encoder_launch, dev, x.data_ptr(), *(w.data_ptr() for w in weights),
+                  out.data_ptr(), B, T, H1, H2, L, *plan)
     return out
-
-
-encode_fused.launches = 0

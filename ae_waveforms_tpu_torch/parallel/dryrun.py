@@ -30,6 +30,7 @@ import torch
 import torch.distributed as dist
 
 from ae_waveforms_tpu_torch import resolve_device
+from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.parallel import launch
 from ae_waveforms_tpu_torch.parallel.mesh import Grid, data_mesh
 
@@ -211,15 +212,7 @@ WORKLOADS = {"ae": ae_steps, "gbt": gbt_seeds, "dl": dl_seeds, "multi": multi_co
 
 
 def _launch_counts() -> Dict[str, int]:
-    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
-    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
-    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
-
-    return {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-            "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches, "gbt_leaves": tree_leaves.launches,
-            "lstm_encoder": encode_fused.launches}
+    return dict(_build.launches)
 
 
 def _jobs_rank(device, jobs) -> Dict:

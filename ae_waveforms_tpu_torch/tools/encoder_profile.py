@@ -24,7 +24,6 @@ from __future__ import annotations
 
 import ctypes
 import sys
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -32,10 +31,7 @@ import torch
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
 from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.lstm_encoder import _smem_floats, encode_fused_reference, encoder_plan
-from ae_waveforms_tpu_torch.tools.variants import build, sub
-
-sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
-from chip_smoke import graph_ms  # noqa: E402
+from ae_waveforms_tpu_torch.tools.common import graph_ms, registers, sub
 
 OUT = _build.BUILD_DIR.parent / "encoder_profile"
 T, H1, H2, L = 320, 128, 64, 10
@@ -77,12 +73,9 @@ def main() -> int:
         print("encoder_profile: no CUDA device is present", file=sys.stderr)
         return 2
     dev = torch.device("cuda:0")
-    libs = {}
-    for name, (lib, registers) in build(OUT, variants((_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text())).items():
-        print(f"[build] {name}: registers per thread by instance {registers}")
-        lib.lstm_encoder_launch.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-        lib.lstm_encoder_launch.restype = ctypes.c_int
-        libs[name] = lib
+    libs = _build.build_variants(OUT, variants((_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text()))
+    for name in libs:
+        print(f"[build] {name}: registers per thread by instance {registers(OUT, name)}")
     model = LSTMAutoencoder(L, generator=torch.Generator().manual_seed(0), device=dev)
     params = model.jax_tree()
     weights = [params[f"enc{i}"][k] for i in (1, 2, 3) for k in ("w_ih", "w_hh", "b_ih", "b_hh")]
@@ -95,10 +88,8 @@ def main() -> int:
             out = torch.empty((B, L), device=dev)
 
             def call():
-                rc = lib.lstm_encoder_launch(x.data_ptr(), *(w.data_ptr() for w in weights), out.data_ptr(),
-                                             B, T, H1, H2, L, *plan, torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"{name}: cudaError_t {rc}")
+                _build.launch(lib.lstm_encoder_launch, dev, x.data_ptr(), *(w.data_ptr() for w in weights),
+                              out.data_ptr(), B, T, H1, H2, L, *plan)
 
             ms = graph_ms(torch, call, 10)
             err = (out - ref).abs().max().item()

@@ -20,10 +20,14 @@ example a ``git archive`` of the parent commit, unpacked), builds
 
 It prints, per build, the shared-memory atomics of its SASS
 (``cuobjdump -sass``, by opcode) and the device time per call (a CUDA graph
-of 20 calls) at the fit's shapes through that checkout's own wrapper; for
-``stamped`` the cycles per block of each part.  For this checkout it then
-times every cluster size C at each shape beside ``hist_plan``'s choice, and
-writes those times to ``build/hist_profile/plans.json``.
+of 20 calls) at the fit's shapes, each build launched through
+``ops._build.launch`` with ``hist_plan``'s plan, as ``left_histograms_fixed``
+launches it; for ``stamped`` the cycles per block of each part.  For this
+checkout it then times every cluster size C at each shape beside
+``hist_plan``'s choice, and writes those times to
+``build/hist_profile/plans.json``.  A checkout is profiled by its own copy
+of this tool (``python -m`` in that checkout), so DIR must hold it too: an
+earlier checkout without it is profiled with its own tool.
 Inputs are random, from seeds: F = 10, 64 bins, node ids uniform over the
 level, and in the "fit-like" shape g = h = 0 on 46% of rows.
 """
@@ -32,14 +36,16 @@ from __future__ import annotations
 
 import argparse
 import collections
-import importlib
+import ctypes
 import json
-import os
 import re
 import shutil
 import subprocess
 import sys
 from pathlib import Path
+
+from ae_waveforms_tpu_torch.ops import _build
+from ae_waveforms_tpu_torch.tools.common import graph_ms, registers, sub
 
 F, N_BINS = 10, 64
 # (S, n, half, share of rows with g = h = 0)
@@ -78,21 +84,15 @@ SUMS64 = """  __device__ __forceinline__ void add(int cell, long long qg, long l
 """
 
 
-def _sub(src: str, old: str, new: str) -> str:
-    if src.count(old) != 1:
-        raise RuntimeError(f"the kernel source changed; {old!r} found {src.count(old)} times, not once")
-    return src.replace(old, new)
-
-
 def stamped(src: str) -> str:
     """The kernel with clock64 stamps of thread 0 of each block, summed over
     blocks into ``g_stamps`` (cycles of each part, then the block count)."""
-    s = _sub(src, "namespace {\n", "__device__ unsigned long long g_stamps[4];\nnamespace {\n")
-    s = _sub(s, "  extern __shared__ uint4 smem[];\n", "  extern __shared__ uint4 smem[];\n  const long long t0 = clock64();\n")
-    s = _sub(s, "  __syncthreads();\n\n  // the walk", "  __syncthreads();\n  const long long t1 = clock64();\n\n  // the walk")
-    s = _sub(s, "  cluster.sync();  // every copy of the tile is complete\n",
+    s = sub(src, "namespace {\n", "__device__ unsigned long long g_stamps[4];\nnamespace {\n")
+    s = sub(s, "  extern __shared__ uint4 smem[];\n", "  extern __shared__ uint4 smem[];\n  const long long t0 = clock64();\n")
+    s = sub(s, "  __syncthreads();\n\n  // the walk", "  __syncthreads();\n  const long long t1 = clock64();\n\n  // the walk")
+    s = sub(s, "  cluster.sync();  // every copy of the tile is complete\n",
              "  cluster.sync();  // every copy of the tile is complete\n  const long long t2 = clock64();\n")
-    s = _sub(s, "  cluster.sync();  // no block leaves while another still reads its copy\n",
+    s = sub(s, "  cluster.sync();  // no block leaves while another still reads its copy\n",
              "  cluster.sync();  // no block leaves while another still reads its copy\n"
              "  if (threadIdx.x == 0) {\n    atomicAdd(&g_stamps[0], t1 - t0);\n    atomicAdd(&g_stamps[1], t2 - t1);\n"
              "    atomicAdd(&g_stamps[2], clock64() - t2);\n    atomicAdd(&g_stamps[3], 1ull);\n  }\n")
@@ -114,15 +114,15 @@ def atomic64(src: str) -> str:
 
 
 def variants(src: str, own: bool) -> dict:
-    """name -> (source, extra nvcc flags)."""
+    """name -> source text."""
     noatomic = STAND_IN + src.replace("atomicAdd(", "fake_add(")
     noatomic = re.sub(r"atom\.shared\.add\.u32 (\w+), \[[^\]]*\], (%\d+);", r"mov.u32 \1, \2;", noatomic)
     noatomic = re.sub(r"red\.shared\.add\.u32 \[[^\]]*\], \w+;", "", noatomic)
-    out = {"kernel": (src, []), "noatomic": (noatomic, [])}
+    out = {"kernel": src, "noatomic": noatomic}
     if "struct Sums {" in src:
-        out["atomic64"] = (atomic64(src), [])
+        out["atomic64"] = atomic64(src)
     if own:
-        out["stamped"] = (stamped(src), [])
+        out["stamped"] = stamped(src)
     return out
 
 
@@ -131,23 +131,6 @@ def sass_atomics(so: Path) -> dict:
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True, text=True, check=True).stdout
     return dict(collections.Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOMS)\b", text)))
-
-
-def graph_ms(torch, fn, reps: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(3):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (3 * reps)
 
 
 def inputs(torch, np, S, n, half, zero):
@@ -161,51 +144,54 @@ def inputs(torch, np, S, n, half, zero):
     return binsT, g, h, node
 
 
+def launch(lib, dev, plan, C: int, packed, g, h, node, shift, out, half: int) -> None:
+    """One launch of build ``lib`` into ``out`` with ``plan``'s tile and C
+    blocks a cluster (one-byte bins)."""
+    S, n = g.shape
+    _build.launch(lib.gbt_hist_launch, dev, packed.data_ptr(), g.data_ptr(), h.data_ptr(), node.data_ptr(),
+                  shift.data_ptr(), out.data_ptr(), S, n, packed.shape[1], 1, F, N_BINS, half, C, plan.node_tile,
+                  plan.feature_tile, plan.threads, plan.smem_bytes)
+
+
 def worker(label: str, own: bool) -> int:
     """Runs in the checkout that is the working directory: builds its
-    variants and times them through its own wrapper."""
-    sys.path.insert(0, os.getcwd())
+    variants and times each at every shape."""
     import numpy as np
     import torch
 
-    from ae_waveforms_tpu_torch.ops import _build
+    from ae_waveforms_tpu_torch.ops import gbt_hist as mod
 
     out_dir = _build.BUILD_DIR.parent / "hist_profile"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    src = (_build.CSRC / _build.KERNELS["gbt_hist"]).read_text()
-    procs = {}
-    for name, (text, flags) in variants(src, own).items():
-        (out_dir / f"{name}.cu").write_text(text)
-        cmd = [nvcc, *_build.NVCC_FLAGS, *flags, "-o", str(out_dir / f"{name}.so"), str(out_dir / f"{name}.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=open(out_dir / f"{name}.log", "w"), stderr=subprocess.STDOUT)
-    for name, proc in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{(out_dir / f'{name}.log').read_text()}")
-        regs = re.findall(r"Used (\d+) registers", (out_dir / f"{name}.log").read_text())
-        print(f"[hist] {label} {name}: registers {regs}; shared-memory atomics in the SASS "
+    libs = _build.build_variants(out_dir, variants((_build.CSRC / _build.KERNELS["gbt_hist"]).read_text(), own))
+    for name in libs:
+        print(f"[hist] {label} {name}: registers {registers(out_dir, name)}; shared-memory atomics in the SASS "
               f"{sass_atomics(out_dir / f'{name}.so')}", flush=True)
 
-    data = {shape: inputs(torch, np, *shape) for shape in SHAPES}
-    for name in procs:
-        # the wrapper loads the library through _build: point it at this build
-        _build._loaded["gbt_hist"] = __import__("ctypes").CDLL(str(out_dir / f"{name}.so"))
-        mod = importlib.reload(importlib.import_module("ae_waveforms_tpu_torch.ops.gbt_hist"))
-        for shape, (binsT, g, h, node) in data.items():
+    dev = torch.device("cuda:0")
+    active = mod.active_clusters(dev.index)
+    data = {}
+    for shape in SHAPES:
+        S, n, half, zero = shape
+        binsT, g, h, node = inputs(torch, np, *shape)
+        shift = mod.fixed_point_shift(g, h)
+        ref = mod.left_histograms_fixed_reference(binsT, g, h, node, shift, half=half, n_bins=N_BINS)
+        plan = mod.hist_plan(S, n, F, N_BINS, half, active)
+        data[shape] = (mod.pack_bins(binsT, N_BINS), g, h, node, shift, ref, plan)
+    for name, lib in libs.items():
+        for shape, (packed, g, h, node, shift, ref, plan) in data.items():
             S, n, half, zero = shape
-            shift = mod.fixed_point_shift(g, h)
-            kw = dict(half=half, n_bins=N_BINS)
-            if hasattr(mod, "pack_bins"):
-                kw["packed"] = mod.pack_bins(binsT, N_BINS)
-            ms = graph_ms(torch, lambda: mod.left_histograms_fixed(binsT, g, h, node, shift, **kw))
-            exact = torch.equal(mod.left_histograms_fixed(binsT, g, h, node, shift, **kw),
-                                mod.left_histograms_fixed_reference(binsT, g, h, node, shift, half=half, n_bins=N_BINS))
-            line = f"[hist] {label} {name} S={S} n={n} half={half} zero rows {zero:.2f}: {ms:.5f} ms per call, exact {exact}"
+            out = torch.empty_like(ref)
+
+            def call():
+                launch(lib, dev, plan, plan.cluster, packed, g, h, node, shift, out, half)
+
+            ms = graph_ms(torch, call, 20)
+            line = (f"[hist] {label} {name} S={S} n={n} half={half} zero rows {zero:.2f}: {ms:.5f} ms per call, "
+                    f"exact {torch.equal(out, ref)}")
             if name == "stamped":
-                lib = _build._loaded["gbt_hist"]
-                buf = (__import__("ctypes").c_ulonglong * 4)()
+                buf = (ctypes.c_ulonglong * 4)()
                 lib.read_stamps(buf)  # clears what the timing added
-                mod.left_histograms_fixed(binsT, g, h, node, shift, **kw)
+                call()
                 torch.cuda.synchronize()
                 if lib.read_stamps(buf) != 0:
                     raise RuntimeError("reading the clock64 stamps failed")
@@ -213,47 +199,29 @@ def worker(label: str, own: bool) -> int:
                 line += "; cycles per block: " + ", ".join(f"{p} {buf[i] / blocks:.0f}" for i, p in enumerate(PARTS))
             print(line, flush=True)
     if own:
-        plans(torch, np, data)
+        plans(torch, dev, libs["kernel"], data, active, out_dir)
     return 0
 
 
-def plans(torch, np, data) -> None:
+def plans(torch, dev, lib, data, active, out_dir: Path) -> None:
     """Every cluster size at each shape, beside hist_plan's choice."""
-    from ae_waveforms_tpu_torch.ops import _build
-    from ae_waveforms_tpu_torch.ops import gbt_hist as mod
+    from ae_waveforms_tpu_torch.ops.gbt_hist import CLUSTER_SIZES
 
-    _build._loaded.pop("gbt_hist", None)
-    mod = importlib.reload(mod)
-    lib = mod._library()
-    active = mod.active_clusters(torch.cuda.current_device())
     results = []
-    for shape, (binsT, g, h, node) in data.items():
+    for shape, (packed, g, h, node, shift, ref, chosen) in data.items():
         S, n, half, zero = shape
-        shift = mod.fixed_point_shift(g, h)
-        packed = mod.pack_bins(binsT, N_BINS)
-        chosen = mod.hist_plan(S, n, F, N_BINS, half, active)
-        ref = mod.left_histograms_fixed_reference(binsT, g, h, node, shift, half=half, n_bins=N_BINS)
-        for C in mod.CLUSTER_SIZES:
+        out = torch.empty_like(ref)
+        for C in CLUSTER_SIZES:
             plan = chosen._replace(cluster=C)
-            out = torch.empty_like(ref, device="cuda")
-
-            def call():
-                rc = lib.gbt_hist_launch(
-                    packed.data_ptr(), g.data_ptr(), h.data_ptr(), node.data_ptr(), shift.data_ptr(), out.data_ptr(),
-                    S, n, packed.shape[1], 1, F, N_BINS, half, C, plan.node_tile, plan.feature_tile, plan.threads,
-                    plan.smem_bytes, torch.cuda.current_stream().cuda_stream)
-                if rc != 0:
-                    raise RuntimeError(f"cudaError_t {rc}")
-
-            ms = graph_ms(torch, call)
-            exact = torch.equal(out.cpu(), ref.cpu())
+            ms = graph_ms(torch, lambda: launch(lib, dev, plan, C, packed, g, h, node, shift, out, half), 20)
+            exact = torch.equal(out, ref)
             mark = " <- hist_plan" if C == chosen.cluster else ""
             print(f"[hist] plan S={S} n={n} half={half} zero rows {zero:.2f} C={C} tile {plan.node_tile}x"
                   f"{plan.feature_tile} walks {plan.walks} smem {plan.smem_bytes} active clusters {active[C]}: "
                   f"{ms:.5f} ms, exact {exact}{mark}", flush=True)
             results.append(dict(S=S, n=n, half=half, zero=zero, C=C, ms=ms, active=active[C],
                                 smem=plan.smem_bytes, walks=plan.walks, chosen=C == chosen.cluster))
-    (_build.BUILD_DIR.parent / "hist_profile" / "plans.json").write_text(json.dumps(results, indent=1))
+    (out_dir / "plans.json").write_text(json.dumps(results, indent=1))
 
 
 def main() -> int:
@@ -271,7 +239,9 @@ def main() -> int:
     root = Path(__file__).resolve().parents[2]
     runs = [(root, "own")] + ([(Path(args.baseline).resolve(), "baseline")] if args.baseline else [])
     for checkout, label in runs:
-        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker", label], cwd=checkout).returncode
+        # python -m puts the working directory first on the path: the checkout's own package
+        cmd = [sys.executable, "-m", "ae_waveforms_tpu_torch.tools.hist_profile", "--worker", label]
+        rc = subprocess.run(cmd, cwd=checkout).returncode
         if rc != 0:
             return rc
     return 0

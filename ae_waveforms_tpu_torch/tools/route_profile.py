@@ -29,8 +29,10 @@ Every kernel result is checked against the plain version; all times go to
 checkout, for example a ``git archive`` of the parent commit unpacked into
 ``build/parent``), DIR's own ``chip_smoke.phase_route`` runs in its own
 process before and after, so the earlier kernel is timed in the same call.
-Inputs are ``chip_smoke.heap_inputs``': F = 10, 64 bins, node ids uniform
-over the first level.
+Each plan is launched through ``ops._build.launch`` with the plan's fields,
+as ``route_levels`` launches ``route_plan``'s.  Inputs are
+``tools.common.heap_inputs``': F = 10, 64 bins, node ids uniform over the
+first level.
 """
 
 from __future__ import annotations
@@ -41,9 +43,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-from ae_waveforms_tpu_torch.tools.variants import build, sub
+from ae_waveforms_tpu_torch.tools.common import graph_ms, heap_inputs, registers, sub
 
-ROOT = Path(__file__).resolve().parents[2]
 F, N_BINS = 10, 64
 # (S, n, d0, d1): one level of the fit (96 fits x 12,500 rows at 32 nodes,
 # the deep bucket's 24 at 512, the PPV sweep's 25 at 128), the fit's rows at
@@ -72,17 +73,13 @@ def own() -> int:
     import numpy as np
     import torch
 
-    sys.path.insert(0, str(ROOT))
-    from chip_smoke import graph_ms, heap_inputs
-
     from ae_waveforms_tpu_torch.ops import _build
     from ae_waveforms_tpu_torch.ops import gbt_route as mod
 
     out_dir = _build.BUILD_DIR.parent / "route_profile"
-    libs = {}
-    for name, (lib, registers) in build(out_dir, variants((_build.CSRC / _build.KERNELS["gbt_route"]).read_text())).items():
-        print(f"[route] {name}: registers {registers}", flush=True)
-        libs[name] = lib
+    libs = _build.build_variants(out_dir, variants((_build.CSRC / _build.KERNELS["gbt_route"]).read_text()))
+    for name in libs:
+        print(f"[route] {name}: registers {registers(out_dir, name)}", flush=True)
 
     dev = torch.device("cuda:0")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -93,16 +90,20 @@ def own() -> int:
         width, levels = 2**d0, d1 - d0
         nodes = width * (2**levels - 1)
         tables = (feat[:, width - 1:], thresh[:, width - 1:], split[:, width - 1:])
+        out = torch.empty((S, n), dtype=torch.int32, device=dev)
         ref = mod.route_levels_reference(*args)
         chosen = mod.route_plan(S, n, F, levels, width, sms)
         where = f"S={S} n={n} levels [{d0}, {d1})"
 
         def timed(kind, plan, build_name="kernel"):
             def call():
-                return mod._launch(bins_t, node, *tables, S, width, levels, plan=plan, lib=libs[build_name])
+                _build.launch(libs[build_name].gbt_route_launch, dev, bins_t.data_ptr(), bins_t.stride(0),
+                              bins_t.stride(1), 0 if node is None else node.data_ptr(),
+                              *(t.data_ptr() for t in tables), *(t.stride(0) for t in tables), out.data_ptr(), S, n,
+                              F, width, levels, *map(int, plan))
 
             ms = graph_ms(torch, call, 20)
-            if build_name == "kernel" and not torch.equal(call(), ref):
+            if build_name == "kernel" and not torch.equal(out, ref):
                 raise RuntimeError(f"the kernel differs from the plain version at {where} with {plan}")
             results.append(dict(S=S, n=n, d0=d0, d1=d1, kind=kind, build=build_name, **plan._asdict(), ms=ms,
                                 chosen=plan == chosen))

@@ -216,6 +216,9 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT))
 
+from ae_waveforms_tpu_torch.ops import _build  # noqa: E402
+from ae_waveforms_tpu_torch.tools.common import event_ms, graph_ms, heap_inputs, route_inputs  # noqa: E402
+
 # H100 SXM peaks (NVIDIA data sheet, dense, 700 W): HBM3 bytes/s and the
 # float32 rate outside the tensor cores; both kernels work in float32/int32
 PEAK_BYTES_PER_S = 3.35e12
@@ -236,36 +239,9 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def graph_ms(torch, fn, reps: int) -> float:
-    """Device milliseconds per call of ``fn``: ``reps`` calls captured in one
-    CUDA graph, replayed and timed with CUDA events, so the host's launch
-    gaps between the calls are not counted."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    return event_ms(torch, graph.replay, 3) / reps
-
-
-def event_ms(torch, fn, reps: int) -> float:
-    """Milliseconds per call of ``fn`` from CUDA events around ``reps``
-    back-to-back calls after a warm one; includes the gaps in which the card
-    waits for the host to launch the next kernel."""
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+def launched(before: dict) -> dict:
+    """Each kernel's launches since ``before``, a copy of ``_build.launches``."""
+    return {k: v - before[k] for k, v in _build.launches.items()}
 
 
 def bound(nbytes: float, flops: float):
@@ -423,34 +399,6 @@ INT32_EDGES = np.array([-2**31, -2**31 + 1, -2**24 - 1, -2**24, -2**23, -1, 0, 1
                         2**24 + 1, 2**31 - 2, 2**31 - 1], np.int64)
 
 
-def _values(rng, size, n_bins, edges):
-    """Bins or thresholds: uniform below ``n_bins``, or drawn from ``edges``."""
-    return (rng.integers(0, n_bins, size=size) if edges is None else rng.choice(edges, size=size)).astype(np.int32)
-
-
-def route_inputs(torch, dev, rng, S, n, n_nodes, F=10, n_bins=64, edges=None):
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (t(_values(rng, (F, n), n_bins, edges)),
-            t(rng.integers(0, n_nodes, size=(S, n)).astype(np.int32)),
-            t(rng.integers(0, F, size=(S, n_nodes)).astype(np.int32)),
-            t(_values(rng, (S, n_nodes), n_bins, edges)),
-            t(rng.random((S, n_nodes)) < 0.7))
-
-
-def heap_inputs(torch, dev, rng, S, n, d0, d1, F=10, n_bins=64, edges=None):
-    """The pool as a predict call passes it, ``bins.T`` of (n, F) bins, level
-    d0's node ids (None from the root) and S random heaps of depth d1."""
-    t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    M = 2**d1
-    is_split = rng.random((S, M)) < 0.8
-    is_split[:, -1] = False  # the heap's inert slot
-    return (t(_values(rng, (n, F), n_bins, edges)).T,
-            None if d0 == 0 else t(rng.integers(0, 2**d0, size=(S, n)).astype(np.int32)),
-            t(rng.integers(0, F, size=(S, M)).astype(np.int32)),
-            t(_values(rng, (S, M), n_bins, edges)),
-            t(is_split), d0, d1)
-
-
 # one level (S, n, nodes): the serving head's levels, a 1024-node level and
 # the fit's deepest: the grid search's depth <= 6 chunks (ROUTE_FIT_SHAPE,
 # 28,000 of a classify run's launches are such levels), the deep bucket's 24
@@ -576,8 +524,6 @@ def phase_serve(torch):
     from ae_waveforms_tpu_torch.bridge import gbt_from_numpy
     from ae_waveforms_tpu_torch.core.config import TrainConfig
     from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
     from ae_waveforms_tpu_torch.serve import Scorer
     from ae_waveforms_tpu_torch.train.checkpoint import save_state
 
@@ -589,7 +535,7 @@ def phase_serve(torch):
         model = LSTMAutoencoder(cfg.latent_size, generator=torch.Generator().manual_seed(0), device="cpu")
         save_state(os.path.join(results, "networks_autoencoder", RUN, "model_autoencoder.npz"), model.jax_tree())
 
-        encode_fused.launches = route_rows.launches = 0
+        before = dict(_build.launches)
         scorer = Scorer.from_run(results, RUN, cfg)
         warm_s = scorer.warmup()
         plain = {n: scorer.score(pool[:n]) for n in SIZES}
@@ -599,15 +545,16 @@ def phase_serve(torch):
         gbt_arrays = random_gbt_arrays(np.random.default_rng(4))
         scorer.attach_gbt(gbt_from_numpy(**gbt_arrays, edges=edges, params=gbt_params))
         headed = {n: scorer.score(pool[:n]) for n in SIZES}
-        launches = {"lstm_encoder": encode_fused.launches, "gbt_route": route_rows.launches}
+        launches = {k: v for k, v in launched(before).items() if k in ("lstm_encoder", "gbt_route")}
         print(f"[serve] warmup {warm_s:.3f} s; launches during the serving run: {launches}")
         check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the serving path: {launches}")
 
-        encode_fused.launches = route_rows.launches = 0
+        before = dict(_build.launches)
         scorer.score(pool[:64])
-        print(f"[serve] launches per score of 64 beats: lstm_encoder {encode_fused.launches}, "
-              f"gbt_route {route_rows.launches}")
-        check(encode_fused.launches == route_rows.launches == 1, "a score launches each kernel once")
+        per_score = launched(before)
+        print(f"[serve] launches per score of 64 beats: lstm_encoder {per_score['lstm_encoder']}, "
+              f"gbt_route {per_score['gbt_route']}")
+        check(per_score["lstm_encoder"] == per_score["gbt_route"] == 1, "a score launches each kernel once")
 
         for n in SIZES:
             times = []
@@ -659,7 +606,7 @@ def phase_hist(torch, dev):
     from ae_waveforms_tpu_torch.ops import gbt_hist
 
     # the plan's mirror of the kernel's shared-memory layout
-    kernel_cells = gbt_hist._library().gbt_hist_max_cells()
+    kernel_cells = _build.load("gbt_hist").gbt_hist_max_cells()
     check(kernel_cells == gbt_hist.MAX_CELLS, f"hist_plan assumes {gbt_hist.MAX_CELLS} cells a tile, the kernel "
                                                f"holds {kernel_cells}")
     # the clusters the card holds at once, by cluster size, which the wrapper plans with
@@ -745,10 +692,6 @@ def write_latent_dir(d: str, n_per: int = 6500, F: int = 10, seed: int = 6) -> N
 def phase_classify(torch):
     from ae_waveforms_tpu_torch.classify.lhs import lhs_param_dicts
     from ae_waveforms_tpu_torch.cli import classify as cli
-    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
-    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
-    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
 
     n_candidates, n_seeds = 12, 25
     cands = lhs_param_dicts(n_candidates, random_state=1)  # the CLI's grid
@@ -771,16 +714,13 @@ def phase_classify(torch):
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         write_latent_dir(d)
         cli.grid_search_cv, cli.ppv_analysis = timing("grid", originals[0]), timing("ppv", originals[1])
-        left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
-        tree_grad.launches = tree_leaves.launches = 0
+        before = dict(_build.launches)
         try:
             result = cli.main(["ppv", "--data", d, "--vectorized", "--gs_candidates", str(n_candidates),
                                "--seeds", str(n_seeds)])
         finally:
             cli.grid_search_cv, cli.ppv_analysis = originals
-        launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-                    "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches,
-                    "gbt_leaves": tree_leaves.launches}
+        launches = {k: v for k, v in launched(before).items() if k != "lstm_encoder"}
     print(f"[classify] launches during the classify run: {launches}")
     check(all(v > 0 for v in launches.values()), f"a kernel was not launched on the classify path: {launches}")
     check(launches["gbt_route"] == launches["gbt_hist"] + 1,
@@ -867,7 +807,6 @@ def _split_gains(bins, g, h, rows, splits):
 
 def phase_determinism(torch, dev):
     from ae_waveforms_tpu_torch.classify import gbt
-    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
     from ae_waveforms_tpu_torch.ops.gbt_tree import ROW_STREAM, subsample_uniforms
 
     rng = np.random.default_rng(7)
@@ -883,9 +822,9 @@ def phase_determinism(torch, dev):
         return gbt.fit_gbt_sweep_margins(torch.from_numpy(bins).to(device), y, weights, np.arange(S),
                                          *hp.values(), max_depth=depth, n_estimators=trees)
 
-    split_level.launches = 0
+    before = dict(_build.launches)
     a, b = fit(dev), fit(dev)
-    split_launches = split_level.launches
+    split_launches = launched(before)["gbt_split"]
     c = fit("cpu")
     torch.cuda.synchronize()
     print(f"[determinism] split kernel launches in the two card fits: {split_launches} ({trees} trees x depth "
@@ -1007,7 +946,6 @@ def instrumented_train(torch, args):
     from torch.profiler import ProfilerActivity, profile
 
     from ae_waveforms_tpu_torch.cli import main_ae
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
     from ae_waveforms_tpu_torch.train import loop
 
     steps, host_ms, validations, prof = [], [], [], {}
@@ -1036,13 +974,13 @@ def instrumented_train(torch, args):
 
     def timed_validate(model, val_x, idx, mask, *a):
         torch.cuda.synchronize()
-        before, t0 = encode_fused.launches, time.perf_counter()
+        before, t0 = dict(_build.launches), time.perf_counter()
         out = orig_validate(model, val_x, idx, mask, *a)
-        validations.append(((time.perf_counter() - t0) * 1e3, encode_fused.launches - before, len(idx)))
+        validations.append(((time.perf_counter() - t0) * 1e3, launched(before)["lstm_encoder"], len(idx)))
         return out
 
     loop.train_step, loop.validate = timed_step, timed_validate
-    encode_fused.launches = 0
+    before = dict(_build.launches)
     graphed = orig_step.captures, orig_step.replays
     try:
         t0 = time.perf_counter()
@@ -1051,7 +989,7 @@ def instrumented_train(torch, args):
     finally:
         loop.train_step, loop.validate = orig_step, orig_validate
     return dict(run_dir=run_dir, train_s=train_s, steps=steps, host_ms=host_ms, validations=validations, prof=prof,
-                launches=encode_fused.launches, captures=orig_step.captures - graphed[0],
+                launches=launched(before)["lstm_encoder"], captures=orig_step.captures - graphed[0],
                 replays=orig_step.replays - graphed[1])
 
 
@@ -1231,16 +1169,15 @@ def check_test_pass(torch, tag: str, args, run: str, model_class: str):
     launches."""
     from ae_waveforms_tpu_torch.cli import main_ae
     from ae_waveforms_tpu_torch.core.config import TrainConfig
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
     from ae_waveforms_tpu_torch.train.eval import main_test
 
     data, results = args[args.index("--dataset_dir") + 1], args[args.index("--results_dir") + 1]
-    encode_fused.launches = 0
+    before = dict(_build.launches)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     main_ae.autoencoder(["-m", "test", "--trained_model", run, *args])
     test_ms = (time.perf_counter() - t0) * 1e3
-    launches = encode_fused.launches
+    launches = launched(before)["lstm_encoder"]
     test_dir = os.path.join(results, "test_autoencoder", run)
     card_z = np.load(os.path.join(test_dir, "np_latent_spaces.npy"))
     card_pred = np.load(os.path.join(test_dir, "np_waves_test_pred.npy"))
@@ -1328,19 +1265,18 @@ def conv_scorer(torch, dev, results: str, run: str):
     kernel's launches in the scored run."""
     from ae_waveforms_tpu_torch.bridge import gbt_from_numpy
     from ae_waveforms_tpu_torch.core.config import TrainConfig
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
     from ae_waveforms_tpu_torch.serve import Scorer
 
     cfg = TrainConfig(model_class=CONV)
     pool = synthetic_beats(np.random.default_rng(3), max(SIZES))
     gbt_arrays = random_gbt_arrays(np.random.default_rng(4))
-    route_rows.launches = 0
+    before = dict(_build.launches)
     scorer = Scorer.from_run(results, run, cfg, device=dev)
     scorer.warmup()
     edges = separated_edges(scorer.score(pool)["latents"], 64, margin=LATENT_ATOL)
     scorer.attach_gbt(gbt_from_numpy(**gbt_arrays, edges=edges, params=GBT_PARAMS, device=dev))
     card = {n: scorer.score(pool[:n]) for n in SIZES}
-    launches = route_rows.launches
+    launches = launched(before)["gbt_route"]
     times = []
     for _ in range(20):
         t0 = time.perf_counter()
@@ -1374,7 +1310,6 @@ def reconstruction_study(torch, dev, data: str, results: str, runs):
     from ae_waveforms_tpu_torch.analysis import trad_vs_ae
     from ae_waveforms_tpu_torch.core.config import TrainConfig
     from ae_waveforms_tpu_torch.core.schema import load_arrays
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
     from ae_waveforms_tpu_torch.traditional.reconstruction import reconstruct_gaussian_batch
     from ae_waveforms_tpu_torch.traditional.sigma_search import make_objective, prepare_reconstruction_inputs
     from ae_waveforms_tpu_torch.train import eval as eval_mod
@@ -1412,14 +1347,14 @@ def reconstruction_study(torch, dev, data: str, results: str, runs):
 
     def timed_test(cfg, *a, **k):
         torch.cuda.synchronize()
-        before, t0 = encode_fused.launches, time.perf_counter()
+        before, t0 = dict(_build.launches), time.perf_counter()
         out = orig[3](cfg, *a, **k)
-        t["tests"].append((cfg.model_class, (time.perf_counter() - t0) * 1e3, encode_fused.launches - before))
+        t["tests"].append((cfg.model_class, (time.perf_counter() - t0) * 1e3, launched(before)["lstm_encoder"]))
         return out
 
     trad_vs_ae.make_objective, trad_vs_ae.sweep_search = timed_make_objective, timed_sweep
     trad_vs_ae.reconstruct_gaussian_batch, eval_mod.main_test = timed_recon, timed_test
-    encode_fused.launches = 0
+    before = dict(_build.launches)
     try:
         t0 = time.perf_counter()
         out = trad_vs_ae.compare(TrainConfig(dataset_dir=data, results_dir=results, plotting=False), arrays=arrays,
@@ -1429,7 +1364,7 @@ def reconstruction_study(torch, dev, data: str, results: str, runs):
     finally:
         (trad_vs_ae.make_objective, trad_vs_ae.sweep_search, trad_vs_ae.reconstruct_gaussian_batch,
          eval_mod.main_test) = orig
-    launches = encode_fused.launches
+    launches = launched(before)["lstm_encoder"]
     best_map, best = t["best"]
     print(f"[analysis] compare on the card: {wall_s:.3f} s wall; sigma sweep {t['search_s']:.3f} s wall, "
           f"{t['candidates']} candidates, {t['candidates'] / t['objective_s']:.1f} candidates/s over the objective's "
@@ -1718,12 +1653,8 @@ def phase_extract(torch, dev, work=None):
     from ae_waveforms_tpu_torch.core.config import ExtractionConfig
     from ae_waveforms_tpu_torch.data import extract as ex
     from ae_waveforms_tpu_torch.data.synthetic import synthetic_ecg_record
-    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
 
-    counters = (encode_fused, route_rows, left_histograms_fixed)
-    before = [c.launches for c in counters]
+    before = dict(_build.launches)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
     print(f"[extract] every figure of phase 10 is from {smi}")
@@ -1827,9 +1758,10 @@ def phase_extract(torch, dev, work=None):
                            for cid in range(1, EXTRACT_CASES + 1)]
         delineator_parity(torch, dev, windows_by_case)
         card_against_cpu(torch, dev, np.concatenate(windows_by_case[:2]).astype(np.float32))
-    launched = [c.launches - b for c, b in zip(counters, before)]
-    print(f"[extract] lstm_encoder, gbt_route, gbt_hist launches in phase 10: {launched} (extraction reaches none)")
-    return launched
+    counts = launched(before)
+    counts = [counts[k] for k in ("lstm_encoder", "gbt_route", "gbt_hist")]
+    print(f"[extract] lstm_encoder, gbt_route, gbt_hist launches in phase 10: {counts} (extraction reaches none)")
+    return counts
 
 
 # phase 11: many models at once, the DL classifier's size x seed sweep and multi-config AE training
@@ -2267,14 +2199,13 @@ def phase_multi(torch, dev, lstm):
     from ae_waveforms_tpu_torch.cli import main_ae
     from ae_waveforms_tpu_torch.core import hbm
     from ae_waveforms_tpu_torch.core.config import TrainConfig
-    from ae_waveforms_tpu_torch.ops.lstm_encoder import encode_fused
     from ae_waveforms_tpu_torch.train import multi
 
     cfg = TrainConfig()
     base = ["--dataset_dir", lstm["data"], "--results_dir", os.path.join(os.path.dirname(lstm["data"]), "multi"),
             *MULTI_ARGS]
     S = len(MULTI_SEEDS.split(",")) * len(MULTI_LRS.split(","))
-    encode_fused.launches = 0
+    before = dict(_build.launches)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     mem0 = torch.cuda.memory_allocated()
@@ -2288,7 +2219,7 @@ def phase_multi(torch, dev, lstm):
         grouped = main_ae.autoencoder(["-m", "train", *base, "--latent_sizes", MULTI_LATENTS])
         wall2 = time.perf_counter() - t0
     test = main_ae.autoencoder(["-m", "test", *base, "--trained_model", os.path.basename(runs[0])])
-    launches = encode_fused.launches
+    launches = launched(before)["lstm_encoder"]
     multi_readings(torch, f"cli.main_ae --seeds {MULTI_SEEDS} --lr_sweep {MULTI_LRS}", steps, S, wall,
                    lstm["step_ms"])
     multi_readings(torch, f"cli.main_ae --latent_sizes {MULTI_LATENTS}", steps2, 1, wall2, lstm["step_ms"])
@@ -2521,10 +2452,6 @@ def phase_e2e(torch, dev, work=None):
     CPU.  Returns the histogram and routing kernels' launches on the card."""
     from ae_waveforms_tpu_torch.classify import gbt, harness
     from ae_waveforms_tpu_torch.examples import run_e2e
-    from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
-    from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
-    from ae_waveforms_tpu_torch.ops.gbt_split import split_level
-    from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad, tree_leaves
 
     with workdir(work) as w:
         card_dir, cpu_dir = os.path.join(w, "e2e_card"), os.path.join(w, "e2e_cpu")
@@ -2532,17 +2459,14 @@ def phase_e2e(torch, dev, work=None):
         originals = harness.GBTClassifier, gbt.GBTClassifier
         harness.GBTClassifier = gbt.GBTClassifier = recorded
         try:
-            left_histograms_fixed.launches = route_rows.launches = split_level.launches = 0
-            tree_grad.launches = tree_leaves.launches = 0
+            before = dict(_build.launches)
             t0 = time.perf_counter()
             card = run_e2e.main(["--workdir", card_dir, "--device", str(dev)])
             t1 = time.perf_counter()
             flow = run_e2e.resume_and_serve(card_dir, card["data_dir"], device=dev)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            launches = {"gbt_hist": left_histograms_fixed.launches, "gbt_route": route_rows.launches,
-                        "gbt_split": split_level.launches, "gbt_grad": tree_grad.launches,
-                        "gbt_leaves": tree_leaves.launches}
+            launches = {k: v for k, v in launched(before).items() if k != "lstm_encoder"}
         finally:
             harness.GBTClassifier, gbt.GBTClassifier = originals
         cpu = run_e2e.run_ae(cpu_dir, device="cpu")
@@ -2651,7 +2575,7 @@ def phase_split(torch, dev):
             cells = S * n_nodes * F * n_bins
             nbytes = 2 * 8 * cells + S * (20 + F) + (32 * S * n_nodes if last else 16 * cells) + 9 * S * n_nodes
             bound_ms, bound_by = bound(nbytes, 0.0)
-            warps = gbt_split._warps(F, gbt_split._library().max_warps)
+            warps = gbt_split._warps(F, gbt_split._max_warps())
             print(f"[gbt_split] {where}: exact and bit-identical, {split_share:.3f} of nodes split; "
                   f"{S * n_nodes} blocks of {warps} warps; device ms per call (CUDA graph): kernel {ms:.5f}, plain "
                   f"{plain_ms:.5f}; kernel per call with launch gaps (CUDA events) {call_ms:.5f}; bound "
@@ -2735,8 +2659,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is present", file=sys.stderr)
         return 2
-    from ae_waveforms_tpu_torch.ops import _build
-
     dev = torch.device("cuda:0")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]

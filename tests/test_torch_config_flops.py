@@ -95,7 +95,6 @@ COUNTERS = [
     ("conv_ae_train_flops_per_sample", ()), ("dl_classifier_fwd_flops_per_sample", ()),
     ("dl_classifier_fwd_flops_per_sample", (64,)), ("dl_classifier_train_flops_per_model_epoch", ()),
     ("dl_classifier_train_flops_per_model_epoch", (800, 200, 320)),
-    ("gbt_hist_flops_per_fit", (12000, 10, 64, 6, 100)), ("gbt_hist_flops_per_fit", (500, 4, 16, 1, 3)),
 ]
 
 

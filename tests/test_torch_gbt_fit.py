@@ -27,8 +27,7 @@ import torch
 
 from ae_waveforms_tpu.classify import gbt as jgbt
 from ae_waveforms_tpu_torch.classify import gbt
-from ae_waveforms_tpu_torch.ops.gbt_hist import left_histograms_fixed
-from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
+from ae_waveforms_tpu_torch.ops import _build
 
 KW = dict(max_depth=4, n_estimators=12, learning_rate=0.2, subsample=0.9, colsample_bytree=0.9, n_bins=64)
 
@@ -111,7 +110,7 @@ def test_fit_margins_match_jax():
     _assert_same_trees(ens, jens, bins, w * rows, 4, m, jm)
     # the boosting carry is the ensemble's margin of every pool row
     np.testing.assert_allclose(gbt.predict_margin(ens, torch.from_numpy(bins), 4).numpy(), m.numpy(), atol=1e-5)
-    assert left_histograms_fixed.launches == route_rows.launches == 0
+    assert _build.launches["gbt_hist"] == _build.launches["gbt_route"] == 0
 
 
 def _sweep_inputs(S=3):

@@ -17,6 +17,7 @@ from ae_waveforms_tpu.ops.gbt_route_pallas import _route_xla_batched
 from ae_waveforms_tpu.ops.gbt_route_pallas import route_rows as jax_route_rows
 from ae_waveforms_tpu_torch.bridge import gbt_from_numpy
 from ae_waveforms_tpu_torch.classify.gbt import GBTClassifier, bin_data, predict_margin
+from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.gbt_route import (
     BLOCKS_PER_SM, SMEM_BYTES, THREADS, VEC, route_layout, route_levels, route_levels_reference, route_plan,
     route_rows, route_rows_reference, route_spans,
@@ -50,7 +51,7 @@ def test_route_rows_matches_jax_exactly(n_nodes):
     assert got.dtype == np.int32 and got.shape == node.shape
     assert np.array_equal(got, xla)
     assert np.array_equal(got, kernel)
-    assert route_rows.launches == 0  # CPU tensors run the plain version
+    assert _build.launches["gbt_route"] == 0  # CPU tensors run the plain version
 
 
 def test_route_rows_no_split_descends_left_spine():
@@ -111,7 +112,7 @@ def test_route_levels_reference_matches_jax_level_by_level(D, d0, d1, from_root)
     got = route_levels_reference(*args).numpy()
     assert got.dtype == np.int32 and np.array_equal(got, np.asarray(want))
     assert np.array_equal(route_levels(*args).numpy(), got)  # CPU tensors run the plain version
-    assert route_rows.launches == 0
+    assert _build.launches["gbt_route"] == 0
 
 
 def _covered(plan, S, n):
@@ -223,4 +224,4 @@ def test_fit_is_not_ported_yet():
     clf = GBTClassifier(max_depth=2, n_estimators=5, device="cpu").fit(X, y)
     p = clf.predict_proba(X)
     assert p.shape == (200, 2) and clf._ens.feat.shape == (5, 4)
-    assert route_rows.launches == 0 and (clf.predict(X) == y).mean() > 0.9
+    assert _build.launches["gbt_route"] == 0 and (clf.predict(X) == y).mean() > 0.9

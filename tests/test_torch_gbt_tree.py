@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from ae_waveforms_tpu_torch.classify import gbt
+from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.gbt_hist import fixed_point_shift, left_histograms_fixed, pow2
 from ae_waveforms_tpu_torch.ops.gbt_route import route_rows
 from ae_waveforms_tpu_torch.ops.gbt_split import LAMBDA, split_level
@@ -262,9 +263,9 @@ GRAD_CASES = [(1, 149, "plain"), (1, 149, "nocol"), (21, 12000, "subsampled"), (
 def test_grad_kernel_matches_plain_bit_for_bit(S, n, case):
     dev = _card()
     (margin, y, w), kw = grad_inputs(S, n, case, seed=S + n, dev=dev)
-    before = tree_grad.launches
+    before = _build.launches["gbt_grad"]
     got = tree_grad(margin, y, w, **kw)
-    assert tree_grad.launches == before + 1
+    assert _build.launches["gbt_grad"] == before + 1
     want = tree_grad_reference(margin, y, w, **kw)
     torch.cuda.synchronize()
     for name, a, b in zip(got._fields, got, want):
@@ -283,9 +284,9 @@ def test_leaves_kernel_matches_plain_bit_for_bit(S, n, depth, case):
     dev = _card()
     args, margin, leaf, tree = leaves_inputs(S, n, depth, case, seed=S * depth, dev=dev)
     outs = [(margin.clone(), leaf.clone()) for _ in range(2)]
-    before = tree_leaves.launches
+    before = _build.launches["gbt_leaves"]
     tree_leaves(*args, *outs[0], tree=tree)
-    assert tree_leaves.launches == before + 1
+    assert _build.launches["gbt_leaves"] == before + 1
     tree_leaves_reference(*args, *outs[1], tree=tree)
     torch.cuda.synchronize()
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
@@ -308,9 +309,10 @@ def test_card_fit_equals_the_cpu_fit_with_leaves(case):
     kw = dict(max_depth=depth, n_estimators=trees, depth_limits=rng.integers(2, depth + 1, S))
     if case == "masks":
         kw.update(row_masks=rng.random((S, trees, n)) < 0.8, col_masks=rng.random((S, trees, F)) < 0.3)
-    before = tree_grad.launches, tree_leaves.launches
+    before = dict(_build.launches)
     card = gbt.fit_gbt_sweep_margins(bins.to(dev), y, w, np.arange(S) + 2**35, *hp, **kw)
-    assert (tree_grad.launches, tree_leaves.launches) == (before[0] + trees, before[1] + trees)
+    launched = {k: _build.launches[k] - before[k] for k in ("gbt_grad", "gbt_leaves")}
+    assert launched == {"gbt_grad": trees, "gbt_leaves": trees}
     cpu = gbt.fit_gbt_sweep_margins(bins, y, w, np.arange(S) + 2**35, *hp, **kw)
     assert_fits_equal((gbt.GBTEnsemble(*(x.cpu() for x in card[0])), card[1].cpu()), cpu)
     assert cpu[0].is_split.any() and not cpu[0].leaf[:, -1].all()

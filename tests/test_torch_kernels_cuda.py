@@ -16,6 +16,7 @@ import torch
 from ae_waveforms_tpu_torch.models import conv_ae
 from ae_waveforms_tpu_torch.models.conv_ae import LeNet5AutoencoderAvgPool
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.gbt_hist import (
     active_clusters,
     fixed_point_shift,
@@ -55,12 +56,12 @@ def test_encoder_kernel_matches_plain(B, T, hidden, latent):
     dev = _card()
     model = LSTMAutoencoder(latent, hidden, generator=torch.Generator().manual_seed(B), device=dev)
     x = torch.from_numpy(np.random.default_rng(B).standard_normal((B, T, 1)).astype(np.float32)).to(dev)
-    before = encode_fused.launches
+    before = _build.launches["lstm_encoder"]
     with torch.no_grad():
         got = encode_fused(model.jax_tree(), x)
         ref = encode_fused_reference(model.jax_tree(), x)
     torch.cuda.synchronize()
-    assert encode_fused.launches == before + 1
+    assert _build.launches["lstm_encoder"] == before + 1
     assert (got - ref).abs().max().item() <= 2e-5
 
 
@@ -247,15 +248,15 @@ def test_encode_fused_refuses_autograd():
     dev = _card()
     model = LSTMAutoencoder(device=dev).eval()
     x = _beats(4, dev)
-    before = encode_fused.launches
+    before = _build.launches["lstm_encoder"]
     with pytest.raises(RuntimeError, match="no backward"):
         encode_fused(model.jax_tree(), x)
     with pytest.raises(RuntimeError, match="no backward"):
         model(x)
-    assert encode_fused.launches == before
+    assert _build.launches["lstm_encoder"] == before
     with torch.no_grad():
         assert model.encode(x).shape == (4, 10)
-    assert encode_fused.launches == before + 1
+    assert _build.launches["lstm_encoder"] == before + 1
 
 
 def test_train_mode_forward_matches_eval_mode():
@@ -475,9 +476,9 @@ def test_route_kernel_is_exact_for_any_int32(S, n, d0, d1):
     feat = t(rng.integers(0, 10, size=(S, 2**d1)).astype(np.int32))
     thresh = t(rng.choice(INT32_EDGES, size=(S, 2**d1)).astype(np.int32))
     split = t(rng.random((S, 2**d1)) < 0.8)
-    before = route_rows.launches
+    before = _build.launches["gbt_route"]
     got = route_levels(bins_t, node, feat, thresh, split, d0, d1)
-    assert route_rows.launches == before + 1
+    assert _build.launches["gbt_route"] == before + 1
     assert torch.equal(got, route_levels_reference(bins_t, node, feat, thresh, split, d0, d1))
     if d1 == d0 + 1:
         c = 2**d0 - 1
@@ -507,9 +508,9 @@ def test_route_levels_kernel_matches_plain_exactly(S, n, d0, d1, strided):
     node = None if d0 == 0 else torch.from_numpy(
         rng.integers(-(2**d0) // 10 - 1, 2**d0 + 2**d0 // 10 + 1, size=(S, n)).astype(np.int32)).to(dev)
     heaps = _heaps(rng, dev, S, d1)
-    before = route_rows.launches
+    before = _build.launches["gbt_route"]
     got = route_levels(bins_t, node, *heaps, d0, d1)
-    assert route_rows.launches == before + 1
+    assert _build.launches["gbt_route"] == before + 1
     assert torch.equal(got, route_levels_reference(bins_t, node, *heaps, d0, d1))
 
 
@@ -520,9 +521,9 @@ def test_route_leaves_is_one_launch():
     ens = GBTEnsemble(feat, thresh, split, torch.from_numpy(rng.standard_normal((100, 64)).astype(np.float32)).to(dev),
                       torch.tensor(0.3, device=dev))
     bins = torch.from_numpy(rng.integers(0, 64, size=(64, 10)).astype(np.int32)).to(dev)
-    before = route_rows.launches
+    before = _build.launches["gbt_route"]
     leaf = _route_leaves(ens, bins, 6)
-    assert route_rows.launches == before + 1
+    assert _build.launches["gbt_route"] == before + 1
     cpu = GBTEnsemble(*(x.cpu() for x in ens))
     assert torch.equal(leaf.cpu(), _route_leaves(cpu, bins.cpu(), 6))
 
@@ -536,9 +537,9 @@ def test_route_leaves_at_depth_16():
     ens = GBTEnsemble(feat, thresh, split, torch.from_numpy(rng.standard_normal((3, 2**16)).astype(np.float32)).to(dev),
                       torch.tensor(0.3, device=dev))
     bins = torch.from_numpy(rng.integers(0, 64, size=(3000, 10)).astype(np.int32)).to(dev)
-    before = route_rows.launches
+    before = _build.launches["gbt_route"]
     leaf = _route_leaves(ens, bins, 16)
-    assert route_rows.launches == before + len(route_spans(10, 0, 16)) == before + 3
+    assert _build.launches["gbt_route"] == before + len(route_spans(10, 0, 16)) == before + 3
     cpu = GBTEnsemble(*(x.cpu() for x in ens))
     assert torch.equal(leaf.cpu(), _route_leaves(cpu, bins.cpu(), 16))
 
@@ -564,10 +565,10 @@ def test_hist_kernel_matches_plain_and_is_deterministic(S, n, half, n_bins, zero
     if (S, n) == (6, 12001):
         assert n % hist_plan(S, n, 10, n_bins, half, active_clusters(dev.index)).cluster != 0
     packed = pack_bins(binsT, n_bins)
-    before = left_histograms_fixed.launches
+    before = _build.launches["gbt_hist"]
     q1 = left_histograms_fixed(binsT, g, h, node, shift, half=half, n_bins=n_bins, packed=packed)
     q2 = left_histograms_fixed(binsT, g, h, node, shift, half=half, n_bins=n_bins)
-    assert left_histograms_fixed.launches == before + 2
+    assert _build.launches["gbt_hist"] == before + 2
     assert torch.equal(q1, q2)  # bit-identical across calls, packed once or per call
     assert torch.equal(q1, left_histograms_fixed_reference(binsT, g, h, node, shift, half=half, n_bins=n_bins))
     got = left_histograms(binsT, g, h, node, half=half, n_bins=n_bins)
@@ -596,9 +597,9 @@ def test_split_kernel_matches_plain_bit_for_bit(S, n, F, n_bins, depth, case, la
     # the kernel writes row views of ensemble heaps, as the fit hands them
     ens = [tuple(torch.zeros((S, 3, 2**(depth + 1)), dtype=x.dtype, device=dev) for x in a["heap"]) for _ in range(2)]
     kw = dict(depth=depth, n_bins=n_bins, last=last)
-    before = split_level.launches
+    before = _build.launches["gbt_split"]
     got = split_level(**{**a, "heap": tuple(x[:, 1] for x in ens[0])}, **kw)
-    assert split_level.launches == before + 1
+    assert _build.launches["gbt_split"] == before + 1
     want = split_level_reference(**{**a, "heap": tuple(x[:, 1] for x in ens[1])}, **kw)
     torch.cuda.synchronize()
     for key in ("hist", "leaf_sums"):
@@ -626,9 +627,9 @@ def test_fit_on_the_card_equals_the_fit_on_the_cpu():
     hp = (rng.uniform(0.05, 0.3, S), rng.uniform(0, 2, S), rng.integers(1, 8, S).astype(np.float64),
           rng.uniform(0.5, 1, S), rng.uniform(0.5, 1, S), rng.integers(trees // 2, trees + 1, S))
     kw = dict(max_depth=depth, n_estimators=trees, depth_limits=rng.integers(2, depth + 1, S))
-    before = split_level.launches
+    before = _build.launches["gbt_split"]
     card = gbt.fit_gbt_sweep_margins(bins.to(dev), y, w, np.arange(S), *hp, **kw)
-    assert split_level.launches == before + trees * depth
+    assert _build.launches["gbt_split"] == before + trees * depth
     cpu = gbt.fit_gbt_sweep_margins(bins, y, w, np.arange(S), *hp, **kw)
     (ens_card, margin_card), (ens_cpu, margin_cpu) = card, cpu
     for name in ("feat", "thresh", "is_split"):

@@ -17,6 +17,7 @@ from ae_waveforms_tpu.ops.lstm_pallas import encode_fused as jax_encode_fused
 from ae_waveforms_tpu_torch.bridge import lstm_ae_params_from_numpy
 from ae_waveforms_tpu_torch.models import layers
 from ae_waveforms_tpu_torch.models.lstm_ae import LSTMAutoencoder
+from ae_waveforms_tpu_torch.ops import _build
 from ae_waveforms_tpu_torch.ops.lstm_encoder import SMEM_BUDGET, encode_fused, encode_fused_reference, encoder_plan
 
 ATOL = 2e-5
@@ -35,7 +36,7 @@ def test_encode_fused_matches_jax(widths):
     model = lstm_ae_params_from_numpy(jax.tree_util.tree_map(np.asarray, params), device="cpu")
     with torch.no_grad():
         got = encode_fused(model.jax_tree(), torch.from_numpy(x)).numpy()
-    assert encode_fused.launches == 0  # CPU tensors run the plain version
+    assert _build.launches["lstm_encoder"] == 0  # CPU tensors run the plain version
     kernel = np.asarray(jax_encode_fused(params, jnp.asarray(x), interpret=True))
     scan = np.asarray(lstm_ae.latent_of(params, jnp.asarray(x)))
     assert got.shape == (x.shape[0], widths[2]) and got.dtype == np.float32
@@ -126,7 +127,6 @@ def test_model_without_a_device_needs_a_card():
 def test_encoder_profile_instruments_the_kernel_source():
     # the profile tool edits a copy of the kernel source as text; a change to
     # the kernel that breaks its anchors shows here, not first on the card
-    from ae_waveforms_tpu_torch.ops import _build
     from ae_waveforms_tpu_torch.tools.encoder_profile import variants
 
     src = (_build.CSRC / _build.KERNELS["lstm_encoder"]).read_text()
