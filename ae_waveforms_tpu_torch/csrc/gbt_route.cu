@@ -51,6 +51,8 @@ constexpr int kStage = 4;   // splits and bins a thread stages in one round
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSm = 4;  // so at most 64 registers a thread; BLOCKS_PER_SM in ops/gbt_route.py
 constexpr int32_t kNever = 0x7fffffff;  // a threshold no bin exceeds
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100; SMEM_BYTES in ops/gbt_route.py
+constexpr int kMaxDevices = 64;  // devices a process may launch on
 
 struct Args {
   const int32_t* bins;  // (F, n) at strides bins_sf, bins_si
@@ -280,7 +282,7 @@ extern "C" int gbt_route_launch(const int32_t* bins, int bins_sf, int bins_si, c
   if (S < 1 || n < 1 || F < 1 || width < 1 || levels < 1 || levels > 30 || nodes > (1LL << 30) ||
       chunk < 1 || tile < 4 || (tile & (tile - 1)) != 0 || !(vec == 1 || (vec == 4 && n % 4 == 0 && aligned)) ||
       threads < 32 || threads > kThreads || threads % 32 != 0 || chunks > 65535 || blocks != chunks * tiles ||
-      smem != (staged ? 8 * chunk * nodes + 4LL * F * tile : 0) || smem > 232448)
+      smem != (staged ? 8 * chunk * nodes + 4LL * F * tile : 0) || smem > kSmemMax)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{bins, bins_sf, bins_si, node_in, feat, thresh, split, feat_ld, thresh_ld, split_ld, node_out,
                S, n, F, width, levels, static_cast<int>(nodes), chunk, log2_ceil(tile), log2_ceil(nodes),
@@ -289,12 +291,22 @@ extern "C" int gbt_route_launch(const int32_t* bins, int bins_sf, int bins_si, c
                                : (staged ? gbt_route_kernel<1, true> : gbt_route_kernel<1, false>);
   if (staged) {
     // the plan holds kBlocksPerSm blocks an SM in shared memory: ask for the
-    // largest carveout, so the driver does not pick one that holds fewer
-    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                                           cudaSharedmemCarveoutMaxShared);
-    if (err == cudaSuccess && smem > 48 * 1024)
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    // largest carveout, so that the one chosen at launch holds no fewer, and
+    // allow a block all of it; a function's attributes belong to a device:
+    // set them once on each, for each staged variant
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
     if (err != cudaSuccess) return static_cast<int>(err);
+    if (device >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+    static bool attribute_set[kMaxDevices][2] = {};
+    bool& set = attribute_set[device][vec == 4];
+    if (!set) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 cudaSharedmemCarveoutMaxShared);
+      if (err == cudaSuccess) err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      set = true;
+    }
   }
   kernel<<<dim3(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks)), threads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

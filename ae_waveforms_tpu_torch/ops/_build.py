@@ -20,7 +20,12 @@ The launch contract of every CUDA kernel lives here:
   ``launch`` is the one way to call it: it checks the argument count, runs
   on the device's current stream, raises on a non-zero ``cudaError_t`` and
   counts the launch in ``launches`` under ``<kernel>``;
-- ``check`` is the one tensor check, ``device`` the one CPU/CUDA dispatch.
+- ``plan`` caches what a launch at a seen key needs besides its tensors (the
+  plan and the scalar arguments, ``scalars``), counted in ``plan_hits`` and
+  ``plan_misses``;
+- ``check`` is the one tensor check (``checks`` runs it over many tensors in
+  one pass, ``check_table`` over a table that may be wider than a launch
+  reads), ``device`` the one CPU/CUDA dispatch.
 
 A kernel is added by a ``.cu`` file with its ``extern "C"`` launcher and a
 wrapper that calls ``check`` and ``launch``; no table here changes.
@@ -36,12 +41,12 @@ import re
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["KERNELS", "HOST_SOURCES", "BUILD_DIR", "bind", "build", "build_variants", "check", "device", "launch",
-           "launches", "load", "signatures"]
+__all__ = ["KERNELS", "HOST_SOURCES", "BUILD_DIR", "MAX_PLANS", "bind", "build", "build_variants", "check", "check_table",
+           "checks", "device", "launch", "launches", "load", "plan", "plan_hits", "plan_misses", "scalars", "signatures"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -118,15 +123,57 @@ def launch(fn, dev: torch.device, *args) -> None:
     stream, on CUDA device ``dev`` and its current stream, and count it in
     ``launches``.  A wrong number of arguments raises TypeError before the
     call (ctypes passes extra ones silently); a non-zero result raises
-    RuntimeError naming the kernel and the ``cudaError_t``."""
+    RuntimeError naming the kernel and the ``cudaError_t``.
+
+    ctypes launches on the thread's current device, so ``dev`` is made
+    current only where it is not; the stream is read at every call, so a
+    stream made current between two launches takes the second."""
     if len(args) != fn.nargs:
         raise TypeError(f"{fn.__name__} takes {fn.nargs} arguments before the stream, got {len(args)}")
-    index = dev.index  # torch.cuda takes an int index without its Python device lookups
-    with torch.cuda.device(index):  # ctypes launches on the thread's current device
-        rc = fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    index = dev.index
+    if torch._C._cuda_getDevice() == index:
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{fn.kernel} kernel launch failed: cudaError_t {rc}")
     launches[fn.kernel] += 1
+
+
+#: plan-cache lookups in this process, by kernel (the keys of ``launches``),
+#: counted by ``plan``: a hit reuses what an earlier call of the same key
+#: made, a miss makes it
+plan_hits: Dict[str, int] = dict.fromkeys(launches, 0)
+plan_misses: Dict[str, int] = dict.fromkeys(launches, 0)
+#: keys ``plan`` keeps, the oldest dropped first
+MAX_PLANS = 4096
+_plans: Dict[tuple, Any] = {}
+
+
+def plan(key: tuple, make: Callable[[], Any]) -> Any:
+    """What ``make()`` returns for ``key``, made on the key's first lookup and
+    kept: a wrapper's plan and scalar arguments, which depend only on the
+    key.  ``key`` starts with the kernel's name (a key of ``launches``) and
+    holds the shapes that decide the plan and the device index.  A ``make``
+    that raises keeps nothing, so a bad key raises on every call."""
+    made = _plans.get(key)
+    if made is None:
+        plan_misses[key[0]] += 1
+        made = make()
+        if len(_plans) >= MAX_PLANS:
+            del _plans[next(iter(_plans))]
+        _plans[key] = made
+    else:
+        plan_hits[key[0]] += 1
+    return made
+
+
+def scalars(fn, first: int, *values) -> tuple:
+    """``values`` as ctypes objects of the types of the launcher ``fn``'s
+    parameters ``first``, ``first + 1``, ...: kept in a plan, they pass
+    through each call unconverted."""
+    return tuple(ctype(v) for ctype, v in zip(fn.argtypes[first:], values))
 
 
 def device(t: torch.Tensor, what: str) -> torch.device:
@@ -146,9 +193,32 @@ def check(name: str, t: torch.Tensor, dev: torch.device, dtype: torch.dtype, sha
     if t.device != dev or t.dtype != dtype or t.shape != shape:
         raise ValueError(f"{name}: expected {dtype} {tuple(shape)} on {dev}, "
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
-    if layout == "contiguous" and not t.is_contiguous() or layout == "rows" and t.stride()[-1] != 1:
+    if layout == "contiguous" and not t.is_contiguous() or layout == "rows" and t.stride(-1) != 1:
         kind = "contiguous" if layout == "contiguous" else "unit last stride"
         raise ValueError(f"{name}: expected a {kind} {dtype} {tuple(shape)} on {dev}, got strides {t.stride()}")
+
+
+def checks(dev: torch.device, *specs) -> None:
+    """Each ``(name, tensor, dtype, shape)`` of ``specs`` a contiguous
+    ``dtype`` tensor of ``shape`` on ``dev``, in one pass: a tensor that
+    passes costs four attribute reads; the first that fails raises
+    ``check``'s ValueError."""
+    for name, t, dtype, shape in specs:
+        if t.dtype is not dtype or t.shape != shape or t.device != dev or not t.is_contiguous():
+            check(name, t, dev, dtype, shape)
+
+
+def check_table(name: str, t: torch.Tensor, dev: torch.device, dtype: torch.dtype, rows: int, cols: int,
+                layout: str = "rows") -> tuple:
+    """``t``'s strides, once ``t`` is a ``dtype`` table of ``rows`` rows and at
+    least ``cols`` columns on ``dev``, laid out as ``layout`` says (as for
+    ``check``): a table that may be wider than a launch reads, such as a row
+    view of a tree heap.  Else ``check``'s ValueError."""
+    shape, stride = t.shape, t.stride()
+    if (t.dtype is not dtype or len(shape) != 2 or shape[0] != rows or shape[1] < cols or t.device != dev
+            or layout == "rows" and stride[1] != 1):
+        check(name, t, dev, dtype, (rows, max(shape[1], cols) if len(shape) == 2 else cols), layout)
+    return stride
 
 
 def _nvcc() -> str:

@@ -223,29 +223,37 @@ def left_histograms_fixed(binsT, g, h, node_of, shift, *, half: int, n_bins: int
             raise ValueError(f"need half >= 1 and n_bins >= 1, got half={half}, n_bins={n_bins}")
         F, n = binsT.shape
         S = g.shape[0]
-        for name, t, dtype, shape in (("binsT", binsT, torch.int32, (F, n)), ("g", g, torch.float32, (S, n)),
-                                      ("h", h, torch.float32, (S, n)), ("node_of", node_of, torch.int32, (S, n)),
-                                      ("shift", shift, torch.int32, (S,))):
-            _build.check(name, t, dev, dtype, shape)
-        if packed is not None:
-            _build.check("packed", packed, dev, torch.uint8, (n, -(-F * _bin_bytes(n_bins) // 16) * 16))
-            if packed.data_ptr() % 16:
-                raise ValueError(f"packed: expected pack_bins' 16-byte aligned rows on {dev}, "
-                                 f"got address {packed.data_ptr():#x}")
+        _build.checks(dev, ("binsT", binsT, torch.int32, (F, n)), ("g", g, torch.float32, (S, n)),
+                      ("h", h, torch.float32, (S, n)), ("node_of", node_of, torch.int32, (S, n)),
+                      ("shift", shift, torch.int32, (S,)),
+                      *((("packed", packed, torch.uint8, (n, -(-F * _bin_bytes(n_bins) // 16) * 16)),)
+                        if packed is not None else ()))
+        if packed is not None and packed.data_ptr() % 16:
+            raise ValueError(f"packed: expected pack_bins' 16-byte aligned rows on {dev}, "
+                             f"got address {packed.data_ptr():#x}")
         if node_of.is_cpu:
             return left_histograms_fixed_reference(binsT, g, h, node_of, shift, half=half, n_bins=n_bins)
         if S > 65535:
             raise ValueError(f"at most 65535 fits per call, got {S}")
-        out = torch.empty((S, 2 * half, F * n_bins), dtype=torch.int64, device=dev)
         if n == 0 or F == 0 or S == 0:
-            return out.zero_()
-        plan = hist_plan(S, n, F, n_bins, half, active_clusters(dev.index))
+            return torch.zeros((S, 2 * half, F * n_bins), dtype=torch.int64, device=dev)
+        fn = _build.load("gbt_hist").gbt_hist_launch
+        args = _build.plan(("gbt_hist", S, n, F, n_bins, half, dev.index),
+                           lambda: _launch_args(fn, S, n, F, n_bins, half, active_clusters(dev.index)))
+        out = torch.empty(S, 2 * half, F * n_bins, dtype=torch.int64, device=dev)
         if packed is None:
             packed = pack_bins(binsT, n_bins)
-        _build.launch(_build.load("gbt_hist").gbt_hist_launch, dev, packed.data_ptr(), g.data_ptr(), h.data_ptr(),
-                      node_of.data_ptr(), shift.data_ptr(), out.data_ptr(), S, n, packed.shape[1], _bin_bytes(n_bins),
-                      F, n_bins, half, plan.cluster, plan.node_tile, plan.feature_tile, plan.threads, plan.smem_bytes)
+        _build.launch(fn, dev, packed.data_ptr(), g.data_ptr(), h.data_ptr(), node_of.data_ptr(), shift.data_ptr(),
+                      out.data_ptr(), *args)
         return out
+
+
+def _launch_args(fn, S: int, n: int, F: int, n_bins: int, half: int, active: Mapping[int, int]) -> tuple:
+    """The scalar arguments of the launcher ``fn`` for ``hist_plan``'s plan."""
+    p = hist_plan(S, n, F, n_bins, half, active)
+    es = _bin_bytes(n_bins)
+    return _build.scalars(fn, 6, S, n, -(-F * es // 16) * 16, es, F, n_bins, half, p.cluster, p.node_tile,
+                          p.feature_tile, p.threads, p.smem_bytes)
 
 
 def left_histograms(binsT, g, h, node_of, *, half: int, n_bins: int,

@@ -212,23 +212,30 @@ def _launch(bins_t, node_of, feat, thresh, split, S: int, width: int, levels: in
     nodes = width * (2**levels - 1)
     _build.check("bins", bins_t, dev, torch.int32, (F, n), "any")
     if node_of is not None:
-        _build.check("node_of", node_of, dev, torch.int32, (S, n))
+        _build.checks(dev, ("node_of", node_of, torch.int32, (S, n)))
         if node_of.data_ptr() % 16:  # a view into another array: the kernel loads 16-byte groups
             node_of = node_of.clone()
-    for name, t, dtype in (("feat", feat, torch.int32), ("thresh", thresh, torch.int32), ("split", split, torch.bool)):
-        # a table may be wider than the launch's levels, never narrower
-        cols = max(t.shape[-1], nodes) if t.ndim == 2 else nodes
-        _build.check(name, t, dev, dtype, (S, cols), "rows" if nodes > 1 else "any")
-    out = torch.empty((S, n), dtype=torch.int32, device=dev)
+    # a table may be wider than the launch's levels, never narrower
+    layout = "rows" if nodes > 1 else "any"
+    strides = [_build.check_table(name, t, dev, dtype, S, nodes, layout)[0] for name, t, dtype in
+               (("feat", feat, torch.int32), ("thresh", thresh, torch.int32), ("split", split, torch.bool))]
+    out = torch.empty(S, n, dtype=torch.int32, device=dev)
     if S * n == 0:
         return out
-    plan = route_plan(S, n, F, levels, width, _sms(dev.index))
-    _build.launch(_build.load("gbt_route").gbt_route_launch, dev, bins_t.data_ptr(), bins_t.stride(0),
-                  bins_t.stride(1), 0 if node_of is None else node_of.data_ptr(), feat.data_ptr(), thresh.data_ptr(),
-                  split.data_ptr(), feat.stride(0), thresh.stride(0), split.stride(0), out.data_ptr(), S, n, F, width,
-                  levels, plan.chunk, plan.tile, plan.vec, int(plan.staged), plan.blocks, plan.threads,
-                  plan.smem_bytes)
+    fn = _build.load("gbt_route").gbt_route_launch
+    args = _build.plan(("gbt_route", S, n, F, width, levels, dev.index),
+                       lambda: _launch_args(fn, S, n, F, width, levels, _sms(dev.index)))
+    bins_stride = bins_t.stride()
+    _build.launch(fn, dev, bins_t.data_ptr(), *bins_stride, 0 if node_of is None else node_of.data_ptr(),
+                  feat.data_ptr(), thresh.data_ptr(), split.data_ptr(), *strides, out.data_ptr(), *args)
     return out
+
+
+def _launch_args(fn, S: int, n: int, F: int, width: int, levels: int, sms: int) -> tuple:
+    """The scalar arguments of the launcher ``fn`` for ``route_plan``'s plan."""
+    p = route_plan(S, n, F, levels, width, sms)
+    return _build.scalars(fn, 11, S, n, F, width, levels, p.chunk, p.tile, p.vec, int(p.staged), p.blocks, p.threads,
+                          p.smem_bytes)
 
 
 def route_rows(binsT, node_of, bf, bb, do_split) -> torch.Tensor:

@@ -115,32 +115,29 @@ def _warps(F: int, max_warps: int) -> int:
 
 
 def _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth: int,
-           n_bins: int) -> torch.device:
+           n_bins: int) -> Tuple[torch.device, int, int, list]:
+    """The tensors' device, S, F and the heap's row strides, after the checks."""
     dev = _build.device(q, "split_level")
     if depth < 0 or n_bins < 1:
         raise ValueError(f"need depth >= 0 and n_bins >= 1, got depth={depth}, n_bins={n_bins}")
-    if q.dim() != 3 or q.shape[2] % n_bins:
-        raise ValueError(f"q: expected (S, 2 * half, F * {n_bins}), got {tuple(q.shape)}")
-    S, FB = q.shape[0], q.shape[2]
-    F = FB // n_bins
+    shape = q.shape
+    if len(shape) != 3 or shape[2] % n_bins:
+        raise ValueError(f"q: expected (S, 2 * half, F * {n_bins}), got {tuple(shape)}")
+    S, FB = shape[0], shape[2]
     n_nodes = 2**depth
-    half = max(n_nodes // 2, 1)
-    expected = [("q", q, torch.int64, (S, 2 * half, FB)), ("shift", shift, torch.int32, (S,)),
-                ("gammas", gammas, torch.float32, (S,)), ("min_child_weights", min_child_weights, torch.float32, (S,)),
-                ("col", col, torch.bool, (S, F)), ("depth_limits", depth_limits, torch.int64, (S,))]
-    if depth > 0:
-        if parent is None:
-            raise ValueError(f"parent: the last level's node histograms are needed at depth {depth}")
-        expected.append(("parent", parent, torch.int64, (S, 2 * half, FB)))
-    for name, t, dtype, shape in expected:
-        _build.check(name, t, dev, dtype, shape)
+    q_shape = (S, 2 * max(n_nodes // 2, 1), FB)
+    if depth > 0 and parent is None:
+        raise ValueError(f"parent: the last level's node histograms are needed at depth {depth}")
+    _build.checks(dev, ("q", q, torch.int64, q_shape), ("shift", shift, torch.int32, (S,)),
+                  ("gammas", gammas, torch.float32, (S,)), ("min_child_weights", min_child_weights, torch.float32, (S,)),
+                  ("col", col, torch.bool, (S, FB // n_bins)), ("depth_limits", depth_limits, torch.int64, (S,)),
+                  *((("parent", parent, torch.int64, q_shape),) if depth > 0 else ()))
     if len(heap) != 3:
         raise ValueError(f"heap: expected (feat, thresh, is_split), got {len(heap)} tensors")
-    for name, t, dtype in zip(("feat", "thresh", "is_split"), heap, (torch.int32, torch.int32, torch.bool)):
-        # a heap row holds at least the slots up to this level's
-        cols = max(t.shape[-1], 2 * n_nodes - 1) if t.ndim == 2 else 2 * n_nodes - 1
-        _build.check(f"heap {name}", t, dev, dtype, (S, cols), "rows")
-    return dev
+    # a heap row holds at least the slots up to this level's
+    row_strides = [_build.check_table(f"heap {name}", t, dev, dtype, S, 2 * n_nodes - 1)[0] for name, t, dtype in
+                   zip(("feat", "thresh", "is_split"), heap, (torch.int32, torch.int32, torch.bool))]
+    return dev, S, FB // n_bins, row_strides
 
 
 def split_level(q, parent, shift, gammas, min_child_weights, col, depth_limits,
@@ -161,23 +158,25 @@ def split_level(q, parent, shift, gammas, min_child_weights, col, depth_limits,
     ``_build.launches``); on a CPU tensor it runs the plain version.
     A wrong dtype, shape or device raises ``ValueError``, a launch error
     ``RuntimeError``."""
-    dev = _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth, n_bins)
-    kw = dict(depth=depth, n_bins=n_bins, last=last)
+    dev, S, F, row_strides = _check(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth,
+                                    n_bins)
     if q.is_cpu:
-        return split_level_reference(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, **kw)
-    S, FB = q.shape[0], q.shape[2]
-    F, n_nodes = FB // n_bins, 2**depth
+        return split_level_reference(q, parent, shift, gammas, min_child_weights, col, depth_limits, heap, depth=depth,
+                                     n_bins=n_bins, last=last)
+    n_nodes = 2**depth
     if S > 65535:
         raise ValueError(f"at most 65535 fits per call, got {S}")
-    hist = None if last else torch.empty((S, 2 * n_nodes, FB), dtype=torch.int64, device=dev)
-    leaf_sums = torch.empty((S, n_nodes, 4), dtype=torch.int64, device=dev) if last else None
+    fn = _build.load("gbt_split").gbt_split_launch
+    args = _build.plan(("gbt_split", S, F, n_bins, depth, last, dev.index),
+                       lambda: _build.scalars(fn, 15, S, n_nodes, F, n_bins, depth, LAMBDA, _warps(F, _max_warps())))
+    if last:
+        hist, leaf_sums = None, torch.empty(S, n_nodes, 4, dtype=torch.int64, device=dev)
+    else:
+        hist, leaf_sums = torch.empty(S, 2 * n_nodes, F * n_bins, dtype=torch.int64, device=dev), None
     slot = n_nodes - 1  # the level's first heap slot
     feat, thresh, is_split = heap
-    _build.launch(_build.load("gbt_split").gbt_split_launch, dev, q.data_ptr(),
-                  0 if parent is None else parent.data_ptr(), shift.data_ptr(), gammas.data_ptr(),
-                  min_child_weights.data_ptr(), col.data_ptr(), depth_limits.data_ptr(), feat.data_ptr() + 4 * slot,
-                  thresh.data_ptr() + 4 * slot, is_split.data_ptr() + slot, feat.stride(0), thresh.stride(0),
-                  is_split.stride(0), 0 if leaf_sums is None else leaf_sums.data_ptr(),
-                  0 if hist is None else hist.data_ptr(), S, n_nodes, F, n_bins, depth, LAMBDA, _warps(F, _max_warps()))
+    _build.launch(fn, dev, q.data_ptr(), 0 if parent is None else parent.data_ptr(), shift.data_ptr(),
+                  gammas.data_ptr(), min_child_weights.data_ptr(), col.data_ptr(), depth_limits.data_ptr(),
+                  feat.data_ptr() + 4 * slot, thresh.data_ptr() + 4 * slot, is_split.data_ptr() + slot, *row_strides,
+                  0 if leaf_sums is None else leaf_sums.data_ptr(), 0 if hist is None else hist.data_ptr(), *args)
     return SplitLevel(hist, leaf_sums)
-

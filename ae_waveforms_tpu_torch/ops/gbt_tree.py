@@ -122,26 +122,28 @@ def tree_grad(margin, y, row_weights, seeds, subsamples, colsamples, *, tree: in
                          f"tree={tree}, n_features={n_features}")
     S, n = margin.shape
     F = n_features
-    for name, t, dtype, shape in (("margin", margin, torch.float32, (S, n)), ("y", y, torch.float32, (n,)),
-                                  ("row_weights", row_weights, torch.float32, (S, n)),
-                                  ("seeds", seeds, torch.int64, (S,)), ("subsamples", subsamples, torch.float32, (S,)),
-                                  ("colsamples", colsamples, torch.float32, (S,))):
-        _build.check(name, t, dev, dtype, shape)
+    _build.checks(dev, ("margin", margin, torch.float32, (S, n)), ("y", y, torch.float32, (n,)),
+                  ("row_weights", row_weights, torch.float32, (S, n)), ("seeds", seeds, torch.int64, (S,)),
+                  ("subsamples", subsamples, torch.float32, (S,)), ("colsamples", colsamples, torch.float32, (S,)))
     for name, t, shape in (("row_mask", row_mask, (S, n)), ("col_mask", col_mask, (S, F))):
         if t is not None:
             _build.check(name, t, dev, torch.bool, shape, "rows")
-    kw = dict(tree=tree, n_features=F, row_mask=row_mask, col_mask=col_mask)
     if margin.is_cpu:
-        return tree_grad_reference(margin, y, row_weights, seeds, subsamples, colsamples, **kw)
-    g, h = torch.empty((2, S, n), dtype=torch.float32, device=dev)
-    node_of = torch.empty((S, n), dtype=torch.int32, device=dev)
-    col = torch.empty((S, F), dtype=torch.bool, device=dev)
+        return tree_grad_reference(margin, y, row_weights, seeds, subsamples, colsamples, tree=tree, n_features=F,
+                                   row_mask=row_mask, col_mask=col_mask)
+    g = torch.empty(S, n, dtype=torch.float32, device=dev)
+    h = torch.empty(S, n, dtype=torch.float32, device=dev)
+    node_of = torch.empty(S, n, dtype=torch.int32, device=dev)
+    col = torch.empty(S, F, dtype=torch.bool, device=dev)
     shift = torch.empty(S, dtype=torch.int32, device=dev)
     masks = [(0, 0) if m is None else (m.data_ptr(), m.stride(0)) for m in (row_mask, col_mask)]
-    _build.launch(_build.load("gbt_tree").gbt_grad_launch, dev, margin.data_ptr(), y.data_ptr(), row_weights.data_ptr(),
-                  seeds.data_ptr(), subsamples.data_ptr(), colsamples.data_ptr(), *masks[0], *masks[1], g.data_ptr(),
-                  h.data_ptr(), node_of.data_ptr(), col.data_ptr(), shift.data_ptr(), S, n, F, tree,
-                  62 - max(n - 1, 0).bit_length())
+    fn = _build.load("gbt_tree").gbt_grad_launch
+    # the shift's base: 62 less the bits of n - 1, as in fixed_point_shift
+    sizes, shift_base = _build.plan(("gbt_grad", S, n, F, dev.index), lambda: (
+        _build.scalars(fn, 15, S, n, F), _build.scalars(fn, 19, 62 - max(n - 1, 0).bit_length())[0]))
+    _build.launch(fn, dev, margin.data_ptr(), y.data_ptr(), row_weights.data_ptr(), seeds.data_ptr(),
+                  subsamples.data_ptr(), colsamples.data_ptr(), *masks[0], *masks[1], g.data_ptr(), h.data_ptr(),
+                  node_of.data_ptr(), col.data_ptr(), shift.data_ptr(), *sizes, tree, shift_base)
     return TreeGrad(g, h, node_of, col, shift)
 
 
@@ -166,17 +168,19 @@ def tree_leaves(leaf_sums, shift, learning_rates, n_actives, node_of, margin, le
     L = leaf.shape[2]
     if L < 2 or L & (L - 1):
         raise ValueError(f"leaves a tree: expected a power of two, at least 2, got {L}")
-    for name, t, dtype, shape in (("leaf_sums", leaf_sums, torch.int64, (S, L // 2, 4)),
-                                  ("shift", shift, torch.int32, (S,)),
-                                  ("learning_rates", learning_rates, torch.float32, (S,)),
-                                  ("n_actives", n_actives, torch.int64, (S,)),
-                                  ("node_of", node_of, torch.int32, (S, n)), ("margin", margin, torch.float32, (S, n))):
-        _build.check(name, t, dev, dtype, shape)
-    _build.check("leaf", leaf, dev, torch.float32, (S, leaf.shape[1], L), "rows")
+    _build.checks(dev, ("leaf_sums", leaf_sums, torch.int64, (S, L // 2, 4)), ("shift", shift, torch.int32, (S,)),
+                  ("learning_rates", learning_rates, torch.float32, (S,)), ("n_actives", n_actives, torch.int64, (S,)),
+                  ("node_of", node_of, torch.int32, (S, n)), ("margin", margin, torch.float32, (S, n)))
+    leaf_stride = leaf.stride()
+    if leaf.dtype is not torch.float32 or leaf.shape[0] != S or leaf.device != dev or leaf_stride[2] != 1:
+        _build.check("leaf", leaf, dev, torch.float32, (S, leaf.shape[1], L), "rows")
     if margin.is_cpu:
         return tree_leaves_reference(leaf_sums, shift, learning_rates, n_actives, node_of, margin, leaf, tree=tree)
     if S > 65535:
         raise ValueError(f"at most 65535 fits per call, got {S}")
-    _build.launch(_build.load("gbt_tree").gbt_leaves_launch, dev, leaf_sums.data_ptr(), shift.data_ptr(),
-                  learning_rates.data_ptr(), n_actives.data_ptr(), node_of.data_ptr(), margin.data_ptr(),
-                  leaf.data_ptr() + 4 * tree * leaf.stride(1), leaf.stride(0), S, n, L, tree, LAMBDA)
+    fn = _build.load("gbt_tree").gbt_leaves_launch
+    sizes, lam = _build.plan(("gbt_leaves", S, n, L, dev.index),
+                             lambda: (_build.scalars(fn, 8, S, n, L), _build.scalars(fn, 12, LAMBDA)[0]))
+    _build.launch(fn, dev, leaf_sums.data_ptr(), shift.data_ptr(), learning_rates.data_ptr(), n_actives.data_ptr(),
+                  node_of.data_ptr(), margin.data_ptr(), leaf.data_ptr() + 4 * tree * leaf_stride[1], leaf_stride[0],
+                  *sizes, tree, lam)

@@ -199,3 +199,37 @@ def test_inactive_trees_are_no_ops(n_active):
                                   n_active=n_active, **KW)
     assert not ens.leaf[n_active:].any()
     np.testing.assert_allclose(gbt.predict_margin(ens, torch.from_numpy(bins), 4).numpy(), m.numpy(), atol=1e-5)
+
+
+def test_fit_calls_the_histogram_and_routing_hooks_once_a_level(monkeypatch):
+    # a benchmark swaps these two module globals for recorders of exactly
+    # these signatures, counts their calls to find its trees and keeps each
+    # histogram call's g, h and node ids to count their rows afterwards
+    hist, route = gbt.left_histograms_fixed, gbt.route_rows
+    hist_calls, route_calls = [], []
+
+    def hist_recorded(binsT, g, h, node_of, shift, *, half, n_bins, packed=None):
+        hist_calls.append((half, g, h, node_of, g.clone(), h.clone(), node_of.clone()))
+        return hist(binsT, g, h, node_of, shift, half=half, n_bins=n_bins, packed=packed)
+
+    def route_recorded(binsT, node_of, bf, bb, do_split):
+        route_calls.append(bf.shape)
+        return route(binsT, node_of, bf, bb, do_split)
+
+    monkeypatch.setattr(gbt, "left_histograms_fixed", hist_recorded)
+    monkeypatch.setattr(gbt, "route_rows", route_recorded)
+    bins, y, rng = _task(n=300)
+    S, depth, trees = 3, 3, 4
+    gbt.fit_gbt_sweep_margins(torch.from_numpy(bins), y, (rng.uniform(size=(S, len(y))) > 0.3).astype(np.float32),
+                              [1, 2, 3], 0.3, 0.0, 1.0, 0.8, 0.8, trees, max_depth=depth, n_estimators=trees)
+    assert [c[0] for c in hist_calls] == [1, 1, 2] * trees
+    assert route_calls == [(S, 2**d) for d in range(depth)] * trees
+    # a tree's levels share its g and h; every call has node ids of its own
+    # and no tensor a call was given is written to later
+    storage = lambda t: t.untyped_storage().data_ptr()  # noqa: E731
+    for k, (_, g, h, node_of, g0, h0, node0) in enumerate(hist_calls):
+        assert torch.equal(g, g0) and torch.equal(h, h0) and torch.equal(node_of, node0)
+        first = hist_calls[k - k % depth]
+        assert g is first[1] and h is first[2]
+    assert len({storage(c[3]) for c in hist_calls}) == len(hist_calls)
+    assert len({storage(c[1]) for c in hist_calls}) == len({storage(c[2]) for c in hist_calls}) == trees

@@ -1,8 +1,8 @@
 """The port's one kernel launch contract (``ops/_build.py``), on the CPU:
 the ctypes signatures read from the ``extern "C"`` prototypes of
 ``csrc/*.cu`` against the hand-written lists they replaced, the launch path
-on a stub library, the one tensor check and the one launch count.  Nothing
-is compiled."""
+on a stub library, the one tensor check, the one launch count and the
+plan cache.  Nothing is compiled."""
 
 import contextlib
 import ctypes
@@ -65,7 +65,7 @@ def test_prototype_signature_equals_the_hand_written_list(name):
 
 def test_every_extern_c_function_is_pinned_and_every_launcher_counted():
     assert sorted(_parsed()) == sorted(HAND_WRITTEN)
-    assert list(_build.launches) == KERNEL_KEYS
+    assert list(_build.launches) == list(_build.plan_hits) == list(_build.plan_misses) == KERNEL_KEYS
     assert sorted(_build.KERNELS) == ["gbt_hist", "gbt_route", "gbt_split", "gbt_tree", "lstm_encoder"]
 
 
@@ -88,42 +88,103 @@ def test_signatures_refuse_what_the_contract_does_not_hold(text, what):
         _build.signatures(text)
 
 
+def _stand_in_for_the_card(monkeypatch, state):
+    """Stand in for the current CUDA device (``state.current``), its current
+    stream's handle (``state.stream``) and ``torch.cuda.device``, which
+    records each switch in ``state.switches`` and makes the device current
+    inside its block."""
+
+    @contextlib.contextmanager
+    def device(index):
+        state.switches.append(index)
+        before, state.current = state.current, index
+        try:
+            yield
+        finally:
+            state.current = before
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch._C, "_cuda_getDevice", lambda: state.current, raising=False)
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream", lambda index: state.stream, raising=False)
+
+
 @pytest.fixture
 def stub(monkeypatch):
     """A library whose ``fake_launch(const float*, int, cudaStream_t)``
-    records its calls and returns ``stub.rc``; the current device and stream
-    are stood in for, and the count is a fresh one."""
-    lib = types.SimpleNamespace(calls=[], rc=0)
+    records its calls and returns ``stub.rc``; the current device (0) and
+    stream (1234) are stood in for, and the count is a fresh one."""
+    lib = types.SimpleNamespace(calls=[], rc=0, current=0, stream=1234, switches=[])
 
     def fake_launch(*args):
-        lib.calls.append(args)
+        lib.calls.append((lib.current, *args))
         return lib.rc
 
     lib.fake_launch = fake_launch
     _build.bind(lib, 'extern "C" int fake_launch(const float* x, int n, cudaStream_t stream) { return 0; }')
-    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=1234))
+    _stand_in_for_the_card(monkeypatch, lib)
     monkeypatch.setattr(_build, "launches", {"fake": 0})
     return lib
 
 
+CUDA0 = torch.device("cuda", 0)
+
+
 def test_launch_appends_the_stream_and_counts(stub):
-    _build.launch(stub.fake_launch, torch.device("cpu"), 0, 3)
-    assert stub.calls == [(0, 3, 1234)] and _build.launches == {"fake": 1}
+    _build.launch(stub.fake_launch, CUDA0, 0, 3)
+    assert stub.calls == [(0, 0, 3, 1234)] and _build.launches == {"fake": 1}
 
 
 @pytest.mark.parametrize("args", [(0,), (0, 3, 5)])
 def test_launch_refuses_a_wrong_argument_count_before_the_call(stub, args):
     with pytest.raises(TypeError, match="fake_launch takes 2 arguments"):
-        _build.launch(stub.fake_launch, torch.device("cpu"), *args)
+        _build.launch(stub.fake_launch, CUDA0, *args)
     assert stub.calls == [] and _build.launches == {"fake": 0}
 
 
 def test_launch_raises_naming_the_kernel_and_the_error(stub):
     stub.rc = 700
     with pytest.raises(RuntimeError, match="fake kernel launch failed: cudaError_t 700"):
-        _build.launch(stub.fake_launch, torch.device("cpu"), 0, 3)
+        _build.launch(stub.fake_launch, CUDA0, 0, 3)
     assert len(stub.calls) == 1 and _build.launches == {"fake": 0}
+
+
+@pytest.mark.parametrize("current,switches", [(0, []), (1, [0])])
+def test_launch_makes_its_device_current_only_where_it_is_not(stub, current, switches):
+    # ctypes launches on the thread's current device: the launch runs on
+    # cuda:0 either way, and the caller's device is current again after it
+    stub.current = current
+    _build.launch(stub.fake_launch, CUDA0, 0, 3)
+    assert stub.calls == [(0, 0, 3, 1234)] and stub.switches == switches and stub.current == current
+
+
+def test_launch_reads_the_current_stream_at_every_call(stub):
+    _build.launch(stub.fake_launch, CUDA0, 0, 3)
+    stub.stream = 5678
+    _build.launch(stub.fake_launch, CUDA0, 0, 4)
+    assert [c[-1] for c in stub.calls] == [1234, 5678] and _build.launches == {"fake": 2}
+
+
+def test_plan_makes_each_key_once_keeps_nothing_that_raised_and_drops_the_oldest(monkeypatch):
+    monkeypatch.setattr(_build, "_plans", {})
+    monkeypatch.setattr(_build, "plan_hits", {"fake": 0})
+    monkeypatch.setattr(_build, "plan_misses", {"fake": 0})
+    monkeypatch.setattr(_build, "MAX_PLANS", 2)
+    made = []
+
+    def make(value):
+        made.append(value)
+        if value is None:
+            raise ValueError("no plan")
+        return value
+
+    assert [_build.plan(("fake", k), lambda k=k: make(k)) for k in (1, 1, 2)] == [1, 1, 2]
+    for _ in range(2):
+        with pytest.raises(ValueError, match="no plan"):
+            _build.plan(("fake", None), lambda: make(None))
+    assert _build.plan(("fake", 3), lambda: make(3)) == 3  # the third key drops the first
+    assert _build.plan(("fake", 1), lambda: make(1)) == 1
+    assert made == [1, 2, None, None, 3, 1] and list(_build._plans) == [("fake", 3), ("fake", 1)]
+    assert (_build.plan_misses["fake"], _build.plan_hits["fake"]) == (6, 1)
 
 
 def test_dryrun_reads_a_copy_of_the_one_count():
@@ -154,6 +215,24 @@ def test_check_names_what_it_expected_and_got(t, dtype, shape, layout, match):
                                             (torch.zeros(5, dtype=torch.int32), (5,), "contiguous")])
 def test_check_takes_each_layout_it_allows(t, shape, layout):
     _build.check("x", t, CPU, torch.int32, shape, layout)
+
+
+HEAP = torch.zeros((4, 5, 8), dtype=torch.int32)[:, 2]  # a tree's row view of (S, T, nodes) heaps
+
+
+@pytest.mark.parametrize("t,layout,match", [
+    (HEAP, "rows", None), (HEAP[:, :3], "rows", None), (HEAP.T.contiguous().T, "any", None),
+    (HEAP[:, :2], "rows", "expected torch.int32 \\(4, 3\\) on cpu, got torch.int32 \\(4, 2\\)"),
+    (HEAP.T.contiguous().T, "rows", "expected a unit last stride torch.int32 \\(4, 8\\) on cpu, got strides"),
+    (HEAP.float(), "rows", "expected torch.int32 \\(4, 8\\) on cpu, got torch.float32"),
+    (HEAP[0], "rows", "expected torch.int32 \\(4, 3\\) on cpu, got torch.int32 \\(8,\\)"),
+])
+def test_check_table_takes_wider_tables_and_refuses_the_rest(t, layout, match):
+    if match is None:
+        assert _build.check_table("x", t, CPU, torch.int32, 4, 3, layout) == t.stride()
+    else:
+        with pytest.raises(ValueError, match=f"^x: {match}"):
+            _build.check_table("x", t, CPU, torch.int32, 4, 3, layout)
 
 
 def test_device_dispatch_takes_cuda_or_cpu_only():
@@ -196,26 +275,45 @@ META = torch.device("meta")
 H100_ACTIVE = {1: 132, 2: 66, 4: 30, 8: 15}
 
 
+def _values(args) -> tuple:
+    """The values a C function receives for ``args``: a plan's scalars are
+    ctypes objects, which ctypes passes on as their values."""
+    return tuple(a.value if isinstance(a, ctypes._SimpleCData) else a for a in args)
+
+
+class _Recorded(list):
+    """The launches of a test, (launcher, arguments) each, on the stand-in
+    card: the current stream is ``stream``; the meta tensors' device, which
+    has no index, is the current one."""
+
+    stream = 7
+    current = None
+    switches: list
+
+
 @pytest.fixture
 def recorded(monkeypatch):
     from ae_waveforms_tpu_torch.ops import gbt_hist, gbt_route, gbt_split
 
-    calls, libs = [], {}
+    calls, libs = _Recorded(), {}
+    calls.switches = []
 
     def load(name):
         if name not in libs:
             text = (_build.CSRC / _build.KERNELS[name]).read_text()
             lib = types.SimpleNamespace()
             for fn_name in _build.signatures(text):
-                setattr(lib, fn_name, lambda *args, _name=fn_name: calls.append((_name, args)) or 0)
+                setattr(lib, fn_name, lambda *args, _name=fn_name: calls.append((_name, _values(args))) or 0)
             libs[name] = _build.bind(lib, text)
         return libs[name]
 
     monkeypatch.setattr(_build, "load", load)
     monkeypatch.setattr(_build, "device", lambda t, what: t.device)
     monkeypatch.setattr(_build, "launches", dict.fromkeys(_build.launches, 0))
-    monkeypatch.setattr(torch.cuda, "device", lambda index: contextlib.nullcontext())
-    monkeypatch.setattr(torch.cuda, "current_stream", lambda index: types.SimpleNamespace(cuda_stream=7))
+    monkeypatch.setattr(_build, "plan_hits", dict.fromkeys(_build.launches, 0))
+    monkeypatch.setattr(_build, "plan_misses", dict.fromkeys(_build.launches, 0))
+    monkeypatch.setattr(_build, "_plans", {})
+    _stand_in_for_the_card(monkeypatch, calls)
     monkeypatch.setattr(gbt_hist, "active_clusters", lambda index: H100_ACTIVE)
     monkeypatch.setattr(gbt_route, "_sms", lambda index: 132)
     monkeypatch.setattr(gbt_split, "_max_warps", lambda: 8)  # the kernel's kMaxWarps
@@ -226,24 +324,42 @@ def _meta(*shape, dtype=torch.float32):
     return torch.zeros(shape, dtype=dtype, device=META)
 
 
-def _hist_case():
+def _fault(t, kind: str):
+    """A tensor of ``t``'s shape with another dtype ("dtype"), on the CPU
+    ("device") or with a stride of 2 along its last axis ("layout")."""
+    if kind == "dtype":
+        return torch.zeros(t.shape, dtype=torch.float32 if t.dtype == torch.float64 else torch.float64, device=t.device)
+    if kind == "device":
+        return torch.zeros(t.shape, dtype=t.dtype)
+    return torch.zeros((*t.shape[:-1], 2 * t.shape[-1]), dtype=t.dtype, device=t.device)[..., ::2]
+
+
+def _given(tensors: dict, faults: dict) -> dict:
+    """``tensors`` with each one named in ``faults`` replaced by its fault."""
+    return {k: _fault(t, faults[k]) if k in faults else t for k, t in tensors.items()}
+
+
+def _hist_case(S=27, n=8000, **faults):
     from ae_waveforms_tpu_torch.ops.gbt_hist import hist_plan, left_histograms_fixed
 
-    S, n, F, B, half = 27, 8000, 10, 64, 16
+    F, B, half = 10, 64, 16
     i32 = torch.int32
-    left_histograms_fixed(_meta(F, n, dtype=i32), _meta(S, n), _meta(S, n), _meta(S, n, dtype=i32), _meta(S, dtype=i32),
-                          half=half, n_bins=B)
+    t = _given(dict(binsT=_meta(F, n, dtype=i32), g=_meta(S, n), h=_meta(S, n), node_of=_meta(S, n, dtype=i32),
+                    shift=_meta(S, dtype=i32)), faults)
+    left_histograms_fixed(*t.values(), half=half, n_bins=B)
     p = hist_plan(S, n, F, B, half, H100_ACTIVE)
     return "gbt_hist_launch", (S, n, 16, 1, F, B, half, p.cluster, p.node_tile, p.feature_tile, p.threads, p.smem_bytes)
 
 
-def _route_rows_case():
+def _route_rows_case(S=27, n=8000, **faults):
     from ae_waveforms_tpu_torch.ops.gbt_route import route_plan, route_rows
 
-    S, n, F, nodes = 27, 8000, 10, 32
+    F, nodes = 10, 32
     i32 = torch.int32
     heap = [_meta(S, 127, dtype=i32), _meta(S, 127, dtype=i32), _meta(S, 127, dtype=torch.bool)]
-    route_rows(_meta(F, n, dtype=i32), _meta(S, n, dtype=i32), *(x[:, nodes - 1:2 * nodes - 1] for x in heap))
+    t = _given(dict(binsT=_meta(F, n, dtype=i32), node_of=_meta(S, n, dtype=i32),
+                    **{k: x[:, nodes - 1:2 * nodes - 1] for k, x in zip(("bf", "bb", "do_split"), heap)}), faults)
+    route_rows(*t.values())
     p = route_plan(S, n, F, 1, nodes, 132)
     return "gbt_route_launch", (S, n, F, nodes, 1, p.chunk, p.tile, p.vec, int(p.staged), p.blocks, p.threads,
                                 p.smem_bytes)
@@ -261,35 +377,39 @@ def _route_levels_case():
                                 p.smem_bytes)
 
 
-def _split_case():
+def _split_case(S=27, depth=5, **faults):
     from ae_waveforms_tpu_torch.ops.gbt_split import LAMBDA, _warps, split_level
 
-    S, F, B, depth = 27, 10, 64, 5
+    F, B = 10, 64
     half = 2**depth // 2
     i32, i64 = torch.int32, torch.int64
     heap = (_meta(S, 127, dtype=i32), _meta(S, 127, dtype=i32), _meta(S, 127, dtype=torch.bool))
-    split_level(_meta(S, 2 * half, F * B, dtype=i64), _meta(S, 2 * half, F * B, dtype=i64), _meta(S, dtype=i32),
-                _meta(S), _meta(S), _meta(S, F, dtype=torch.bool), _meta(S, dtype=i64), heap, depth=depth, n_bins=B,
-                last=False)
+    t = _given(dict(q=_meta(S, 2 * half, F * B, dtype=i64), parent=_meta(S, 2 * half, F * B, dtype=i64),
+                    shift=_meta(S, dtype=i32), gammas=_meta(S), min_child_weights=_meta(S),
+                    col=_meta(S, F, dtype=torch.bool), depth_limits=_meta(S, dtype=i64)), faults)
+    split_level(*t.values(), heap, depth=depth, n_bins=B, last=False)
     return "gbt_split_launch", (127, 127, 127, 0, 0, S, 2**depth, F, B, depth, LAMBDA, _warps(F, 8))
 
 
-def _grad_case():
+def _grad_case(S=27, n=8000, **faults):
     from ae_waveforms_tpu_torch.ops.gbt_tree import tree_grad
 
-    S, n, F, tree = 27, 8000, 10, 3
-    tree_grad(_meta(S, n), _meta(n), _meta(S, n), _meta(S, dtype=torch.int64), _meta(S), _meta(S), tree=tree,
-              n_features=F)
+    F, tree = 10, 3
+    t = _given(dict(margin=_meta(S, n), y=_meta(n), row_weights=_meta(S, n), seeds=_meta(S, dtype=torch.int64),
+                    subsamples=_meta(S), colsamples=_meta(S)), faults)
+    tree_grad(*t.values(), tree=tree, n_features=F)
     return "gbt_grad_launch", (S, n, F, tree, 62 - (n - 1).bit_length())
 
 
-def _leaves_case():
+def _leaves_case(S=27, n=8000, **faults):
     from ae_waveforms_tpu_torch.ops.gbt_split import LAMBDA
     from ae_waveforms_tpu_torch.ops.gbt_tree import tree_leaves
 
-    S, n, T, L, tree = 27, 8000, 500, 64, 3
-    tree_leaves(_meta(S, L // 2, 4, dtype=torch.int64), _meta(S, dtype=torch.int32), _meta(S),
-                _meta(S, dtype=torch.int64), _meta(S, n, dtype=torch.int32), _meta(S, n), _meta(S, T, L), tree=tree)
+    T, L, tree = 500, 64, 3
+    t = _given(dict(leaf_sums=_meta(S, L // 2, 4, dtype=torch.int64), shift=_meta(S, dtype=torch.int32),
+                    learning_rates=_meta(S), n_actives=_meta(S, dtype=torch.int64),
+                    node_of=_meta(S, n, dtype=torch.int32), margin=_meta(S, n), leaf=_meta(S, T, L)), faults)
+    tree_leaves(*t.values(), tree=tree)
     return "gbt_leaves_launch", (T * L, S, n, L, tree, LAMBDA)
 
 
@@ -313,3 +433,51 @@ def test_wrapper_launches_with_its_plan(recorded, case):
     assert len(args) == ARITY[launcher] and args[-1] == 7  # the stream last
     assert args[-1 - len(tail):-1] == tail
     assert _build.launches[launcher[: -len("_launch")]] == 1
+
+
+# The plan cache (``_build.plan``): what a launch needs besides its tensors
+# is made once a key, and every call still checks every tensor.
+GBT_CASES = [_hist_case, _route_rows_case, _split_case, _grad_case, _leaves_case]
+OTHER_SHAPE = {_hist_case: dict(S=21, n=12000), _route_rows_case: dict(S=21, n=12000), _split_case: dict(S=21, depth=3),
+               _grad_case: dict(S=21, n=12000), _leaves_case: dict(S=21, n=12000)}
+
+
+@pytest.mark.parametrize("case", GBT_CASES, ids=lambda f: f.__name__.strip("_"))
+def test_plan_cache_launches_each_shape_with_its_own_plan(recorded, case):
+    launched = [case()]
+    kernel = launched[0][0][: -len("_launch")]
+    assert (_build.plan_misses[kernel], _build.plan_hits[kernel]) == (1, 0)
+    recorded.stream = 9  # another stream made current between two calls
+    launched.append(case())
+    assert (_build.plan_misses[kernel], _build.plan_hits[kernel]) == (1, 1)
+    launched.append(case(**OTHER_SHAPE[case]))
+    assert (_build.plan_misses[kernel], _build.plan_hits[kernel]) == (2, 1)
+    launched.append(case())
+    assert (_build.plan_misses[kernel], _build.plan_hits[kernel]) == (2, 2)
+    assert launched[0][1] != launched[2][1]  # the two shapes' plans differ
+    assert len(recorded) == 4 and _build.launches[kernel] == 4
+    for (name, args), (launcher, tail), stream in zip(recorded, launched, (7, 9, 9, 9)):
+        assert name == launcher and args[-1 - len(tail):-1] == tail and args[-1] == stream
+    assert recorded.switches == []
+
+
+FAULTS = [(_hist_case, "g", "dtype", "g"), (_hist_case, "h", "device", "h"),
+          (_hist_case, "node_of", "layout", "node_of"), (_route_rows_case, "node_of", "dtype", "node_of"),
+          (_route_rows_case, "binsT", "device", "bins"), (_route_rows_case, "bf", "layout", "feat"),
+          (_split_case, "gammas", "dtype", "gammas"), (_split_case, "col", "device", "col"),
+          (_split_case, "parent", "layout", "parent"), (_grad_case, "y", "dtype", "y"),
+          (_grad_case, "seeds", "device", "seeds"), (_grad_case, "row_weights", "layout", "row_weights"),
+          (_leaves_case, "shift", "dtype", "shift"), (_leaves_case, "n_actives", "device", "n_actives"),
+          (_leaves_case, "leaf", "layout", "leaf")]
+
+
+@pytest.mark.parametrize("case,name,kind,checked", FAULTS,
+                         ids=[f"{f.__name__.strip('_')}-{name}-{kind}" for f, name, kind, _ in FAULTS])
+def test_plan_cache_hit_still_checks_every_tensor(recorded, case, name, kind, checked):
+    launcher = case()[0]
+    case()
+    kernel = launcher[: -len("_launch")]
+    assert (_build.plan_misses[kernel], _build.plan_hits[kernel]) == (1, 1)
+    with pytest.raises(ValueError, match=f"^{checked}: expected"):
+        case(**{name: kind})
+    assert len(recorded) == 2 and _build.launches[kernel] == 2
