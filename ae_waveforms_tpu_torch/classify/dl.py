@@ -51,6 +51,7 @@ from ae_waveforms_tpu_torch.models.lstm_classifier import LSTMClassifier
 from ae_waveforms_tpu_torch.parallel.mesh import Grid, gather_blocks
 from ae_waveforms_tpu_torch.train.checkpoint import save_state
 from ae_waveforms_tpu_torch.train.loop import _batched_indices
+from ae_waveforms_tpu_torch.train.profiling import span
 from ae_waveforms_tpu_torch.train.stacked import StackedConfigs
 
 __all__ = ["train_classifier", "train_classifier_multi", "dl_size_seed_sweep", "predict", "DL_SIZES", "NUM_EPOCHS"]
@@ -127,13 +128,17 @@ def stacked_step(stacked: StackedConfigs, optimizer: torch.optim.Optimizer, acti
     """One training step of every ``active`` seed: its forward and
     backward (inside ``cudnn_fp32``: cuDNN's RNN backward reads the TF32
     flag when it runs) on its batch ``x[s][idx[s]]``, then one optimizer
-    step over all of them."""
-    stacked.zero_grad()
-    for s in active:
-        loss = batch_bce(stacked.bound(s), x[s], y[s], idx[s], mask[s], generators[s], rate, remat_chunk)
-        with cudnn_fp32():
-            loss.backward()
-    optimizer.step()
+    step over all of them.  Spans: ``dl.step`` around it all, ``dl.seed``
+    a seed's forward and backward, ``dl.optimizer`` the step."""
+    with span("dl.step"):
+        stacked.zero_grad()
+        for s in active:
+            with span("dl.seed"):
+                loss = batch_bce(stacked.bound(s), x[s], y[s], idx[s], mask[s], generators[s], rate, remat_chunk)
+                with cudnn_fp32():
+                    loss.backward()
+        with span("dl.optimizer"):
+            optimizer.step()
 
 
 def _models(seeds, init: Optional[Init]) -> List[LSTMClassifier]:
@@ -177,18 +182,20 @@ def _train_chunk(Xs, ys, Xvs, yvs, seeds, num_epochs, batch_size, patience, min_
         for j in range(steps):
             stacked_step(stacked, optimizer, active, x, y, idx[:, j], mask[:, j], generators, dropout_rate,
                          remat_chunk)
-        template.eval()
-        with torch.no_grad():
-            aucs = torch.stack([_roc_auc_device(stacked.bound(s)(xv[s])[:, 0], yv[s], v_valid) for s in active])
-        template.train()
-        auc = np.zeros(S)
-        auc[active] = aucs.cpu().numpy()  # the epoch's one wait for the device
-        improved = np.zeros(S, bool)
-        improved[active] = auc[active] - best_auc[active] > min_delta
-        stacked.take_(best, torch.as_tensor(improved))
-        best_auc = np.where(improved, auc, best_auc)
-        ever |= improved
-        no_improve = np.where(no_improve >= patience, no_improve, np.where(improved, 0, no_improve + 1))
+        with span("dl.validate"):
+            template.eval()
+            with torch.no_grad():
+                aucs = torch.stack([_roc_auc_device(stacked.bound(s)(xv[s])[:, 0], yv[s], v_valid) for s in active])
+            template.train()
+            auc = np.zeros(S)
+            auc[active] = aucs.cpu().numpy()  # the epoch's one wait for the device
+        with span("dl.select"):
+            improved = np.zeros(S, bool)
+            improved[active] = auc[active] - best_auc[active] > min_delta
+            stacked.take_(best, torch.as_tensor(improved))
+            best_auc = np.where(improved, auc, best_auc)
+            ever |= improved
+            no_improve = np.where(no_improve >= patience, no_improve, np.where(improved, 0, no_improve + 1))
     # a seed that never improved keeps its final params
     stacked.take_(best, torch.as_tensor(~ever))
     return stacked, best

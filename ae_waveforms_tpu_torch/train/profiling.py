@@ -32,6 +32,10 @@ Every range the port opens goes through ``span``.  The names, by phase:
   ``gbt.leaves`` (K6's: leaf weights, margins), a tree iteration of a fit;
   ``gbt.hist`` (the histogram kernel's call), ``gbt.split`` (the epilogue)
   and ``gbt.route`` (the routing kernel's call), a level;
+- ``dl.step`` (``dl.seed``, one seed's forward and backward, and
+  ``dl.optimizer`` inside it), a stacked step of the DL classifier's
+  seeds; ``dl.validate`` (the AUC pass and its wait) and ``dl.select``
+  (the best snapshot and the early-stopping counters), an epoch;
 - ``gather and loss``, ``dropout`` and ``upsample`` inside the models.
 """
 
